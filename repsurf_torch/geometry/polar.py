@@ -1,0 +1,42 @@
+"""Coordinate transforms (repsurf_tpu/geometry/polar.py).
+
+The degenerate inputs are guarded with ``torch.where`` on safe inputs
+(sqrt at 0, acos at +-1, atan2 at the origin), as the JAX version does, so
+values and gradients stay finite there.
+"""
+
+import math
+
+import torch
+
+
+def xyz2sphere(xyz, normalize=True):
+    """XYZ -> (rho, theta, phi).
+
+    theta in [0, pi] (angle from +z), phi in [-pi, pi]; when ``normalize``,
+    theta -> theta/pi in [0, 1] and phi -> phi/(2 pi) + 0.5 in [0, 1].
+    rho == 0 yields theta = 0.
+
+    Args:
+      xyz: [..., 3].
+    Returns:
+      [..., 3] spherical coordinates.
+    """
+    x, y, z = xyz[..., 0:1], xyz[..., 1:2], xyz[..., 2:3]
+    # the three squares summed left to right, as the CUDA kernels do
+    s = x * x + y * y + z * z
+    zero = s == 0.0
+    one = torch.ones_like(s)
+    rho = torch.where(zero, torch.zeros_like(s), torch.sqrt(torch.where(zero, one, s)))
+    u = torch.clamp(z / torch.where(zero, one, rho), -1.0, 1.0)
+    at_pole = torch.abs(u) >= 1.0
+    theta = torch.acos(torch.where(at_pole, torch.zeros_like(u), u))
+    pole_theta = torch.where(u > 0, torch.zeros_like(u), torch.full_like(u, math.pi))
+    theta = torch.where(at_pole, pole_theta, theta)
+    theta = torch.where(zero, torch.zeros_like(theta), theta)  # 0 at rho == 0
+    xy_zero = (x == 0.0) & (y == 0.0)
+    phi = torch.atan2(y, torch.where(xy_zero, torch.ones_like(x), x))
+    if normalize:
+        theta = theta / math.pi
+        phi = phi / (2 * math.pi) + 0.5
+    return torch.cat([rho, theta, phi], dim=-1)

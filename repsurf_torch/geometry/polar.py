@@ -3,11 +3,21 @@
 The degenerate inputs are guarded with ``torch.where`` on safe inputs
 (sqrt at 0, acos at +-1, atan2 at the origin), as the JAX version does, so
 values and gradients stay finite there.
+
+The normalising divisions divide by 0-dim tensors on the data's device, not
+by Python floats: on CUDA PyTorch turns ``x / c`` for a Python float into
+``x * (1 / c)``, which can differ from the IEEE division of the JAX package
+and of the CUDA kernels by an ulp.
 """
 
 import math
 
 import torch
+
+
+def ieee_div(x, c):
+    """x / c for a Python float c, as an IEEE division on every device."""
+    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
 
 
 def xyz2sphere(xyz, normalize=True):
@@ -37,6 +47,6 @@ def xyz2sphere(xyz, normalize=True):
     xy_zero = (x == 0.0) & (y == 0.0)
     phi = torch.atan2(y, torch.where(xy_zero, torch.ones_like(x), x))
     if normalize:
-        theta = theta / math.pi
-        phi = phi / (2 * math.pi) + 0.5
+        theta = ieee_div(theta, math.pi)
+        phi = ieee_div(phi, 2 * math.pi) + 0.5
     return torch.cat([rho, theta, phi], dim=-1)

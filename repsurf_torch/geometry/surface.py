@@ -11,6 +11,7 @@ import math
 import torch
 
 from ..ops.gather import select_group
+from .polar import ieee_div
 
 
 def cal_normal(group_xyz, random_inv_sign=None, is_group=False):
@@ -51,14 +52,14 @@ def cal_normal(group_xyz, random_inv_sign=None, is_group=False):
 def cal_center(group_xyz):
     """Triangle centroid of (v0, v1, v2), summed left to right then / 3."""
     v = group_xyz
-    return (v[..., 0, :] + v[..., 1, :] + v[..., 2, :]) / 3.0
+    return ieee_div(v[..., 0, :] + v[..., 1, :] + v[..., 2, :], 3.0)
 
 
 def cal_const(normal, center, is_normalize=True):
     """Plane constant n.c (normalized by sqrt(3))."""
     n, c = normal, center
     const = (n[..., 0:1] * c[..., 0:1] + n[..., 1:2] * c[..., 1:2]) + n[..., 2:3] * c[..., 2:3]
-    return const / math.sqrt(3.0) if is_normalize else const
+    return ieee_div(const, math.sqrt(3.0)) if is_normalize else const
 
 
 def repair_invalid_group(bad, *tensors):

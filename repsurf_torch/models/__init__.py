@@ -2,10 +2,12 @@
 (repsurf_tpu/models/__init__.py)."""
 
 from .repsurf_cls import RepSurfClassifier, repsurf_ssg_umb, repsurf_ssg_umb_2x
+from .repsurf_seg import RepSurfSegmentor, repsurf_umb_ssg
 
 _REGISTRY = {
     "repsurf.repsurf_ssg_umb": repsurf_ssg_umb,
     "repsurf.repsurf_ssg_umb_2x": repsurf_ssg_umb_2x,
+    "repsurf.repsurf_umb_ssg": repsurf_umb_ssg,
 }
 
 
@@ -18,4 +20,11 @@ def get_model(name, **kwargs):
     return factory(**kwargs)
 
 
-__all__ = ["RepSurfClassifier", "get_model", "repsurf_ssg_umb", "repsurf_ssg_umb_2x"]
+__all__ = [
+    "RepSurfClassifier",
+    "RepSurfSegmentor",
+    "get_model",
+    "repsurf_ssg_umb",
+    "repsurf_ssg_umb_2x",
+    "repsurf_umb_ssg",
+]

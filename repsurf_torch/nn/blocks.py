@@ -1,9 +1,12 @@
-"""RepSurf blocks for classification (repsurf_tpu/nn/blocks.py), as
-``nn.Module``s over channels-last tensors with optional valid counts.
+"""RepSurf blocks (repsurf_tpu/nn/blocks.py), as ``nn.Module``s over
+channels-last tensors with optional valid counts.
 
 Module attribute names follow the reference's torch modules
 (``surface_constructor.mlps.i``, ``sa{i}.mlp_l0 / bn_l0 / mlp_f0 / bn_f0 /
+mlp_convs.j / mlp_bns.j``, ``fp{i}.mlp_f0 / norm_f0 / mlp_s0 / norm_s0 /
 mlp_convs.j / mlp_bns.j``), so a reference state dict maps one to one.
+Blocks whose behaviour differs between training and evaluation (sectorized
+FPS, BN statistics) read the module's ``training`` flag.
 """
 
 import torch
@@ -12,10 +15,18 @@ from torch import nn
 from ..geometry.polar import xyz2sphere
 from ..geometry.umbrella import umbrella_features
 from ..ops.gather import index_points_multi
+from ..ops.interpolate import three_interpolate
 from ..ops.kernels.ball_group import ball_group_feature
 from ..ops.masking import counts_to_mask
+from ..ops.neighbors import knn
 from ..ops.sampling import farthest_point_sample
+from ..ops.sector import sectorized_fps
 from .layers import Linear, MaskedBatchNorm
+
+
+def _mask(valid, n):
+    """[B, n, 1] bool rows-to-count for MaskedBatchNorm, or None."""
+    return None if valid is None else counts_to_mask(valid, n)[:, :, None]
 
 
 class SharedMLP(nn.Module):
@@ -37,14 +48,26 @@ class SharedMLP(nn.Module):
 
 
 class UmbrellaSurfaceConstructor(nn.Module):
-    """Umbrella RepSurf features, classification style: the fused umbrella
-    geometry, a 3-layer MLP and a sum over the fans
-    (``mlps`` = Linear, BN, ReLU, Linear, BN, ReLU, Linear)."""
+    """Umbrella RepSurf features: the umbrella geometry of ``style``, an MLP
+    and a sum over the fans.
 
-    def __init__(self, k, in_channel=10, generator=None):
+    'cls': ``mlps`` = Linear (no bias), BN, ReLU, Linear, BN, ReLU, Linear.
+    'seg': ``mlps`` = Linear, BN, ReLU, Linear.
+    """
+
+    def __init__(self, k, in_channel=10, style="cls", generator=None):
         super().__init__()
         self.k = k
+        self.style = style
         c = in_channel
+        if style == "seg":
+            self.mlps = nn.Sequential(
+                Linear(c, c, generator=generator),
+                MaskedBatchNorm(c),
+                nn.ReLU(),
+                Linear(c, c, generator=generator),
+            )
+            return
         self.mlps = nn.Sequential(
             Linear(c, c, bias=False, generator=generator),
             MaskedBatchNorm(c),
@@ -56,12 +79,11 @@ class UmbrellaSurfaceConstructor(nn.Module):
         )
 
     def forward(self, center, valid=None, inv_sign=None):
-        """center [B, N, 3] -> [B, N, in_channel].  ``inv_sign``: optional
+        """center [B, N, 3] -> [B, N, channels].  ``inv_sign``: optional
         [B] +-1 per-sample normal inversion."""
-        feat = umbrella_features(center, self.k, valid=valid, random_inv_sign=inv_sign)
-        mask = None
-        if valid is not None:
-            mask = counts_to_mask(valid, center.shape[1])[:, :, None]
+        feat = umbrella_features(center, self.k, valid=valid, random_inv_sign=inv_sign,
+                                 style=self.style)
+        mask = _mask(valid, center.shape[1])
         x = feat
         for layer in self.mlps:
             x = layer(x, mask=mask) if isinstance(layer, MaskedBatchNorm) else layer(x)
@@ -69,8 +91,8 @@ class UmbrellaSurfaceConstructor(nn.Module):
 
 
 class SurfaceAbstractionCD(SharedMLP):
-    """Surface abstraction with channel de-differentiation, ball grouping
-    (repsurf_tpu/nn/blocks.py SurfaceAbstractionCD, grouping 'ball').
+    """Surface abstraction with channel de-differentiation
+    (repsurf_tpu/nn/blocks.py SurfaceAbstractionCD).
 
     It is the trailing SharedMLP (mlp[1:]) plus the CD first layer: the
     position and feature channels get their own Linear + BN (``mlp_l0`` /
@@ -79,25 +101,59 @@ class SurfaceAbstractionCD(SharedMLP):
     parameter names.
 
     With ``group_all`` the whole cloud is one group around the origin.
-    Otherwise FPS picks ``npoint`` centers and ``ball_group_feature``
-    groups ``nsample`` neighbors within ``radius`` of each.
+    Otherwise FPS picks the centers, ``npoint`` of them (classification) or
+    N // ``stride`` (segmentation; sectorized over ``num_sector`` azimuth
+    sectors in training), and the neighbours are grouped by ``grouping``:
+    'ball' (``ball_group_feature``, ``nsample`` within ``radius``) or 'knn'
+    (the ``nsample`` nearest).
     """
 
     def __init__(self, feat_channel, mlp, npoint=None, radius=None, nsample=None,
-                 group_all=False, return_polar=True, generator=None):
+                 group_all=False, return_polar=True, stride=None, grouping="ball",
+                 num_sector=1, generator=None):
         super().__init__(mlp[0], mlp[1:], generator=generator)
-        if not group_all and None in (npoint, radius, nsample):
-            raise ValueError("ball grouping needs npoint, radius and nsample")
+        if not group_all:
+            if (npoint is None) == (stride is None):
+                raise ValueError("exactly one of npoint / stride must be set")
+            if nsample is None or (grouping == "ball" and radius is None):
+                raise ValueError(f"{grouping} grouping needs nsample (and a radius for ball)")
         self.npoint = npoint
+        self.stride = stride
         self.radius = radius
         self.nsample = nsample
         self.group_all = group_all
         self.return_polar = return_polar
+        self.grouping = grouping
+        self.num_sector = num_sector
         pos_channel = 6 if return_polar else 3
         self.mlp_l0 = Linear(pos_channel, mlp[0], generator=generator)
         self.bn_l0 = MaskedBatchNorm(mlp[0])
         self.mlp_f0 = Linear(feat_channel, mlp[0], generator=generator)
         self.bn_f0 = MaskedBatchNorm(mlp[0])
+
+    def _sample(self, center, valid):
+        """FPS (sectorized in training) -> (idx [B, M], new valid or None)."""
+        n = center.shape[1]
+        m = self.npoint if self.npoint is not None else max(n // self.stride, 1)
+        new_valid = None
+        if valid is not None:
+            new_valid = valid // self.stride if self.stride is not None else torch.clamp(
+                valid, max=m)
+        if self.num_sector > 1 and self.training:
+            idx = sectorized_fps(center, m, self.num_sector, valid=valid, m_valid=new_valid)
+        else:
+            idx = farthest_point_sample(center, m, valid=valid)
+        return idx, new_valid
+
+    def _knn_group(self, center, new_center, tensors, valid):
+        """kNN grouping -> (pos, feat): relative coordinates (+ polar) and
+        the grouped normal and feature channels."""
+        gidx, _ = knn(self.nsample, center, new_center, valid=valid)
+        group_center, *rest = index_points_multi(gidx, center, *tensors)
+        pos = group_center - new_center[:, :, None]
+        if self.return_polar:
+            pos = torch.cat([pos, xyz2sphere(pos)], dim=-1)
+        return pos, torch.cat([t for t in rest if t is not None], dim=-1)
 
     def forward(self, center, normal, feature, valid=None):
         """center [B,N,3], normal [B,N,D], feature [B,N,C] or None ->
@@ -118,18 +174,46 @@ class SurfaceAbstractionCD(SharedMLP):
             pc = group_center.shape[-1]
             pos, feat = new_feature[..., :pc], new_feature[..., pc:]
         else:
-            idx = farthest_point_sample(center, self.npoint, valid=valid)
-            new_valid = None if valid is None else torch.clamp(valid, max=self.npoint)
+            idx, new_valid = self._sample(center, valid)
             new_center, new_normal = index_points_multi(idx, center, normal)
-            pos, feat = ball_group_feature(
-                self.radius, self.nsample, center, new_center,
-                [center, normal, feature], valid=valid,
-                return_polar=self.return_polar,
-            )
-        mask = None
-        if new_valid is not None:
-            mask = counts_to_mask(new_valid, pos.shape[1])[:, :, None]
+            if self.grouping == "knn":
+                pos, feat = self._knn_group(center, new_center, [normal, feature], valid)
+            else:
+                pos, feat = ball_group_feature(
+                    self.radius, self.nsample, center, new_center,
+                    [center, normal, feature], valid=valid,
+                    return_polar=self.return_polar,
+                )
+        mask = _mask(new_valid, pos.shape[1])
         loc = self.bn_l0(self.mlp_l0(pos), mask=mask)
         fea = self.bn_f0(self.mlp_f0(feat), mask=mask)
         x = super().forward(torch.relu(loc + fea), mask=mask)
         return new_center, new_normal, x.amax(dim=2), new_valid
+
+
+class SurfaceFeaturePropagationCD(SharedMLP):
+    """Feature propagation with channel de-differentiation
+    (repsurf_tpu/nn/blocks.py SurfaceFeaturePropagationCD): 3-NN
+    inverse-distance interpolation of the Linear + BN of the coarse
+    features (``mlp_f0`` / ``norm_f0``), summed with the Linear + BN of the
+    skip features (``mlp_s0`` / ``norm_s0``, absent when ``skip_channel`` is
+    None), ReLU, then the Linear + BN + ReLU stack of mlp[1:]."""
+
+    def __init__(self, prev_channel, skip_channel, mlp, generator=None):
+        super().__init__(mlp[0], mlp[1:], generator=generator)
+        self.mlp_f0 = Linear(prev_channel, mlp[0], generator=generator)
+        self.norm_f0 = MaskedBatchNorm(mlp[0])
+        self.skip = skip_channel is not None
+        if self.skip:
+            self.mlp_s0 = Linear(skip_channel, mlp[0], generator=generator)
+            self.norm_s0 = MaskedBatchNorm(mlp[0])
+
+    def forward(self, xyz1, feat1, xyz2, feat2, valid1=None, valid2=None):
+        """xyz1 / feat1: the fine cloud and its skip features (None without
+        a skip); xyz2 / feat2: the coarse cloud -> [B, N1, mlp[-1]]."""
+        mask1 = _mask(valid1, xyz1.shape[1])
+        f2 = self.norm_f0(self.mlp_f0(feat2), mask=_mask(valid2, feat2.shape[1]))
+        x = three_interpolate(xyz2, xyz1, f2, valid_src=valid2)
+        if self.skip:
+            x = x + self.norm_s0(self.mlp_s0(feat1), mask=mask1)
+        return super().forward(torch.relu(x), mask=mask1)

@@ -76,3 +76,28 @@ class MaskedBatchNorm(nn.Module):
                 self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
         inv = torch.rsqrt(var + self.eps)
         return (x - mean) * (inv * self.weight) + self.bias
+
+
+class Dropout(nn.Module):
+    """Inverted dropout whose mask comes from an explicit generator
+    (``nn.Dropout`` reads torch's global RNG).
+
+    In training, ``forward(x, generator)`` keeps each element with
+    probability 1 - p, drawn as ``torch.rand(...) < 1 - p`` from
+    ``generator`` (on x's device), and scales the kept ones by 1 / (1 - p),
+    flax's ``nn.Dropout`` formula.  In eval mode, or at p = 0, it is the
+    identity and draws nothing.
+    """
+
+    def __init__(self, p=0.5):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x, generator=None):
+        if not self.training or self.p == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("training-mode dropout needs an explicit generator")
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / torch.tensor(keep, dtype=x.dtype, device=x.device), 0.0)

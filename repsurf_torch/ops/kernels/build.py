@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of ``repsurf_torch/csrc``.
 
-nvcc compiles every ``csrc/*.cu`` into one shared library with a plain C
+nvcc compiles every ``csrc/*.cu`` to an object, one process per source, all
+started together, and links them into one shared library with a plain C
 interface, which ``ctypes`` loads.  The build runs at first use, into
 ``build/kernels/`` at the repository root, and is keyed by a hash of the
-sources and flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is.  Nothing here runs when the module is imported.
+sources, headers and flags, so an edited source is rebuilt and an unchanged
+one is loaded as it is.  Nothing here runs when the module is imported.
 
 ``-fmad=false`` keeps nvcc from contracting ``a*b + c`` into one FMA: the
 kernels' distance sums must round op by op, as their plain versions do,
@@ -26,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -35,12 +36,20 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "repsurf_fps": (_I, [_P, _P, _I, _I, _I, _P, _P, _P]),
     "repsurf_fps_max_points": (_I, []),
+    "repsurf_fps_block_points": (_I, []),
     "repsurf_umbrella_cls": (_I, [_P, _P, _I, _I, _I, _P, _P, _P]),
     "repsurf_ball_feature": (
         _I,
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P, _P, _P],
     ),
     "repsurf_ball_feature_max_nsample": (_I, []),
+    "repsurf_knn": (_I, [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P]),
+    "repsurf_knn_max_k": (_I, []),
+    "repsurf_knn_window": (
+        _I,
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    ),
+    "repsurf_knn_window_max_k": (_I, []),
 }
 
 
@@ -64,7 +73,7 @@ def _sources():
 def library_path():
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"librepsurf_kernels_{h.hexdigest()[:16]}.so"
@@ -79,20 +88,30 @@ def build():
     if path.exists():
         return path, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [Path(work) / f"{src.stem}.o" for src in _sources()]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
+            for src, obj in zip(_sources(), objs)
+        ]
+        failed = []
+        for src, proc in zip(_sources(), procs):
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = Path(work) / path.name
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}{link.stderr}")
         os.replace(tmp, path)  # atomic: a reader never sees half a library
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
     return path, time.perf_counter() - t0
 
 

@@ -3,13 +3,17 @@ PyTorch version.
 
 Replaces repsurf_tpu/ops/pallas/fps.py:_fps_kernel.  ``fps`` runs the plain
 version for a tensor on the CPU and the kernel for a tensor on a CUDA
-device; there is no other choice between them.
+device; there is no other choice between them.  The kernel holds clouds of
+up to 12,800 points in one block and larger ones, up to 102,400 points, in
+a cluster of up to 8 blocks (``csrc/fps.cu``).
 
 Semantics: seed index 0, running min of squared distance over every point
 (selected points included), argmax with the lowest index on ties; points
 at or beyond ``valid[b]`` start at -1 and are never picked.  When
 ``npoint > valid[b]`` only the first ``valid[b]`` slots are defined.
 """
+
+import collections
 
 import torch
 
@@ -69,7 +73,7 @@ def fps(xyz, npoint, valid=None, return_xyz=False):
     if not 0 < n <= lib.repsurf_fps_max_points():
         raise ValueError(
             f"fps kernel holds at most {lib.repsurf_fps_max_points()} points "
-            f"per cloud in shared memory, got {n}"
+            f"per cloud in a cluster's shared memory, got {n}"
         )
     if npoint < 1:
         raise ValueError(f"npoint must be positive, got {npoint}")
@@ -86,7 +90,9 @@ def fps(xyz, npoint, valid=None, return_xyz=False):
     )
     check_launch(status, "repsurf_fps")
     fps.launches += 1
+    fps.launches_by_route["block" if n <= lib.repsurf_fps_block_points() else "cluster"] += 1
     return (idx, sampled) if return_xyz else idx
 
 
 fps.launches = 0
+fps.launches_by_route = collections.Counter()

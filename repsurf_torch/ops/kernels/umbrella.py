@@ -11,9 +11,9 @@ per-sample normal inversion; geometry.umbrella.umbrella_features does.
 
 import torch
 
-from ..neighbors import knn
 from . import build
 from .common import check_launch, counts_i32, cuda_f32, forward_only, ptr, stream
+from .knn import knn_plain
 
 CHANNELS = 10
 KERNEL_K = 9  # the one k the kernel is built for: group size 8 + 1
@@ -32,9 +32,9 @@ def umbrella_fan_features_plain(xyz, k, valid=None, return_knn=False):
     """
     from ...geometry.umbrella import umbrella_composition
 
-    feat = umbrella_composition(xyz, k, valid=valid)
+    feat = umbrella_composition(xyz, k, valid=valid, knn_fn=knn_plain)
     if return_knn:
-        return feat, knn(k, xyz, xyz, valid=valid)[0]
+        return feat, knn_plain(k, xyz, xyz, valid=valid)[0]
     return feat
 
 

@@ -1,24 +1,28 @@
-"""Neighbor search, plain PyTorch (repsurf_tpu/ops/neighbors.py).
+"""Neighbor search (repsurf_tpu/ops/neighbors.py).
+
+``knn`` routes as the JAX package does (ops/neighbors.py:102-119): a tensor
+on the CPU takes the plain version; on a CUDA device a cloud of at least
+16,384 points with k <= 128 takes the window kernel, any other the brute
+kernel (ops/kernels).  The bucket route is not ported: the window kernel
+takes clouds of any size.
 
 Distances are direct coordinate differences, ``dx*dx + dy*dy + dz*dz``
 summed left to right, as the kernels compute them (the JAX package's XLA
 route uses ``|q|^2 + |p|^2 - 2 q.p`` instead, which can differ by an ulp
 and so at exact ties and radius boundaries).  Selections break ties on the
-lowest index: a stable sort, never ``topk``.
+lowest index, never by ``topk``'s own order.
 """
 
 import torch
 
 from .gather import index_points
-from .masking import BIG_DIST2, counts_to_mask
+from .kernels.knn import knn_brute, knn_plain, pairwise_dist2
+from .kernels.knn_window import knn_window
+from .masking import counts_to_mask
 
-
-def pairwise_dist2(q, p):
-    """[B, M, 3], [B, N, 3] -> [B, M, N] squared distances."""
-    dx = p[:, None, :, 0] - q[:, :, None, 0]
-    dy = p[:, None, :, 1] - q[:, :, None, 1]
-    dz = p[:, None, :, 2] - q[:, :, None, 2]
-    return dx * dx + dy * dy + dz * dz
+# clouds at least this large take the window kernel on a CUDA device
+WINDOW_MIN_N = 16384
+WINDOW_MAX_K = 128
 
 
 def knn(k, xyz, new_xyz, valid=None):
@@ -35,21 +39,11 @@ def knn(k, xyz, new_xyz, valid=None):
       and dist [B, M, k] float32 Euclidean distances; a missing slot (fewer
       than k valid points) is (0, sqrt(1e10)).
     """
-    b, n, _ = xyz.shape
-    d2 = pairwise_dist2(new_xyz, xyz)
-    if valid is not None:
-        ok = counts_to_mask(valid.to(xyz.device), n)
-        d2 = torch.where(ok[:, None, :], d2, BIG_DIST2)
-    if n < k:
-        pad = torch.full(d2.shape[:-1] + (k - n,), BIG_DIST2, dtype=d2.dtype,
-                         device=d2.device)
-        d2 = torch.cat([d2, pad], dim=-1)
-    d2k, idx = torch.sort(d2, dim=-1, stable=True)
-    d2k, idx = d2k[..., :k], idx[..., :k]
-    missing = d2k >= BIG_DIST2
-    d2k = torch.clamp(d2k, max=BIG_DIST2)
-    idx = torch.where(missing, 0, idx).to(torch.int32)
-    return idx, torch.sqrt(d2k)
+    if xyz.device.type == "cpu":
+        return knn_plain(k, xyz, new_xyz, valid=valid)
+    if xyz.shape[1] >= WINDOW_MIN_N and k <= WINDOW_MAX_K:
+        return knn_window(k, xyz, new_xyz, valid=valid)
+    return knn_brute(k, xyz, new_xyz, valid=valid)
 
 
 def ball_query(radius, nsample, xyz, new_xyz, valid=None):

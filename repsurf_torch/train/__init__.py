@@ -1,2 +1,2 @@
-"""Classification vote evaluation and the weight transfer from the JAX
-package's flax trees."""
+"""Classification vote evaluation, the segmentation train and eval steps,
+the optimizer, and the weight transfer from the JAX package's flax trees."""

@@ -1,0 +1,128 @@
+"""Segmentation train and eval steps (repsurf_tpu/train/train_seg.py).
+
+``train_step``: the training forward (sectorized FPS, batch statistics,
+head dropout, a random normal inversion per sample), the weighted
+cross-entropy with the ignore label, backward, AdamW, and the histogram
+counters.  ``eval_step`` is the serving forward: running statistics, no
+sectors, no dropout, no inversion.
+
+``freeze=True`` follows the JAX step (train_seg.py:148-152): the surface
+constructor's gradients are zeroed before the optimizer, so its AdamW
+moments decay as optax's do, and its parameters end the step exactly as
+they began (torch's decoupled decay would otherwise move them, so they are
+restored from a snapshot).  Its BN running statistics still update, as
+they do in the JAX step.
+"""
+
+import dataclasses
+
+import torch
+
+from ..models import get_model
+from ..nn.losses import weighted_cross_entropy
+from ..nn.metrics import intersection_and_union
+from .optim import make_adamw, multistep_lr
+
+FROZEN_SCOPE = "surface_constructor"
+
+
+@dataclasses.dataclass(frozen=True)
+class SegConfig:
+    """The training recipe of scripts/s3dis/train_repsurf_umb.sh, with the
+    JAX package's defaults; the fields the port reads so far."""
+
+    model: str = "repsurf.repsurf_umb_ssg"
+    num_class: int = 13
+    ignore_label: int = 255
+    learning_rate: float = 6e-3
+    weight_decay: float = 1e-2
+    lr_decay: float = 0.1
+    lr_decay_epochs: tuple = (60, 80)
+    freeze_epoch: int = int(1e6)
+    seed: int = 2000
+    in_channel: int = 6
+    group_size: int = 8
+    return_polar: bool = False
+    num_sector: int = 4
+    head_dropout: float = 0.5
+
+
+def build_model(cfg, generator=None):
+    """The configured model on the CPU, parameters drawn from ``generator``
+    (a CPU ``torch.Generator``)."""
+    return get_model(cfg.model, num_class=cfg.num_class, group_size=cfg.group_size,
+                     return_polar=cfg.return_polar, num_sector=cfg.num_sector,
+                     head_dropout=cfg.head_dropout, in_channel=cfg.in_channel,
+                     generator=generator)
+
+
+def make_optimizer(model, cfg):
+    return make_adamw(model.parameters(), cfg.learning_rate, cfg.weight_decay)
+
+
+def _random_sign(batch, generator, device):
+    draw = torch.randint(0, 2, (batch,), generator=generator, device=device)
+    return draw.to(torch.float32) * 2.0 - 1.0
+
+
+def train_step(model, optimizer, batch, class_weight, cfg, generator=None, freeze=False):
+    """One training step, in place on ``model`` and ``optimizer``.
+
+    Args:
+      batch: dict of coord [B, N, 3], feat [B, N, C], label [B, N] and
+        valid [B] tensors on the model's device.
+      class_weight: [K] tensor.
+      generator: ``torch.Generator`` on the model's device for the normal
+        inversion (when ``model.random_inv``) and the head dropout.
+      freeze: freeze the surface constructor (see the module doc).
+
+    Returns:
+      (loss, (intersection, union, target)) tensors.
+    """
+    model.train()
+    coord, label = batch["coord"], batch["label"]
+    inv_sign = None
+    if model.random_inv:
+        if generator is None:
+            raise ValueError("the random normal inversion needs a generator")
+        inv_sign = _random_sign(coord.shape[0], generator, coord.device)
+    logits = model(coord, batch["feat"], batch["valid"], inv_sign=inv_sign,
+                   generator=generator)
+    loss = weighted_cross_entropy(logits, label, class_weight, cfg.ignore_label)
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    frozen = list(getattr(model, FROZEN_SCOPE).parameters()) if freeze else []
+    saved = [p.detach().clone() for p in frozen]
+    for p in frozen:
+        p.grad = torch.zeros_like(p)
+    optimizer.step()
+    with torch.no_grad():
+        for p, s in zip(frozen, saved):
+            p.copy_(s)
+    pred = logits.detach().argmax(dim=-1)
+    return loss.detach(), intersection_and_union(pred, label, cfg.num_class,
+                                                 cfg.ignore_label)
+
+
+def eval_step(model, batch, class_weight, cfg):
+    """The serving forward of one batch (same batch layout as
+    ``train_step``); returns (loss, pred [B, N], (intersection, union,
+    target))."""
+    model.eval()
+    with torch.no_grad():
+        logits = model(batch["coord"], batch["feat"], batch["valid"])
+        loss = weighted_cross_entropy(logits, batch["label"], class_weight,
+                                      cfg.ignore_label)
+    pred = logits.argmax(dim=-1)
+    return loss, pred, intersection_and_union(pred, batch["label"], cfg.num_class,
+                                              cfg.ignore_label)
+
+
+def epoch_lr(cfg, epoch):
+    return multistep_lr(cfg.learning_rate, tuple(cfg.lr_decay_epochs), cfg.lr_decay)(epoch)
+
+
+def is_frozen(cfg, epoch):
+    """The reference's condition: frozen from the 0-based epoch index
+    ``freeze_epoch`` on (tool/train.py:272, ``freeze_epoch < epoch + 1``)."""
+    return cfg.freeze_epoch < epoch + 1

@@ -170,6 +170,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'repsurf_tpu'))]\n"
         "assert not bad, bad\n"
-        "assert 'repsurf_torch.train.train_cls' in sys.modules\n"
+        "for name in ('train.train_cls', 'train.train_seg', 'train.optim', 'models.repsurf_seg',\n"
+        "             'ops.kernels.knn', 'ops.kernels.knn_window', 'ops.sector', 'ops.interpolate',\n"
+        "             'nn.losses', 'nn.metrics', 'data.s3dis', 'data.synthetic_scene'):\n"
+        "    assert 'repsurf_torch.' + name in sys.modules, name\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

@@ -14,29 +14,50 @@ Run from the root of a checkout.  Phases, each printing its lines:
                evaluation (batch 64, 2048 -> 1024 points, 10 votes) through
                the kernels; launch counts, finite log-probs, kernel path
                against plain path on one batch, times per batch;
-  5. seg kernels - the polar-division check; FPS, window kNN and brute kNN
+  5. train kernels - at the shapes of both SA stages of the classifier:
+               the ball-feature backward (the scatter kernel) twice, bit-equal,
+               and against a float64 scatter-add within 1e-6 of the sum of
+               each element's |contributions|; the row-grouping kernel's
+               forward bit-equal to ball_query + index_points and its
+               backward as above; the umbrella Function's gradient against
+               the plain composition's; then ops/neighbors.ball_group, the
+               row kernel's entry point, driven forward and backward;
+  6. cls train slice - repsurf_ssg_umb at full width, seeded random
+               weights, ClsConfig defaults, one epoch of 8 train steps
+               (batch 64, 2048 -> 1024) through train_epoch and 8 more timed
+               one by one; launch counts, finite losses, peak memory; one
+               SGD step on the kernel path against the plain path, per
+               parameter (with --profile also a torch.profiler table of one
+               train step);
+  7. cli     - python -m repsurf_torch.cli.train_cls --synthetic for 2
+               epochs with vote evaluation, then again to 3 epochs, which
+               must resume from the checkpoint's epoch;
+  8. seg kernels - the polar-division check; FPS, window kNN and brute kNN
                against their plain versions at every shape of the
                repsurf_umb_ssg step at 2 x 80,000 points (synthetic rooms
                and their FPS subsets), with the window kernel's re-solved
                queries per sample; an adversarial window case held to brute
                force; kernel and plain times (CUDA events, median);
-  6. seg slice - repsurf_umb_ssg at full width, seeded random weights,
+  9. seg slice - repsurf_umb_ssg at full width, seeded random weights,
                3 train steps and one eval step on bench.py's batch of two
                80,000-point rooms; launch counts, finite losses, kernel path
                against plain path on one eval forward, step times (with
                --profile also a torch.profiler table of one train step);
-  7. a JSON line of the kernels, then {"ok": true, "device": {...}}.
+  10. a JSON line of the kernels, then {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.
 """
 
 import contextlib
+import copy
+import dataclasses
 import json
 import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -57,6 +78,16 @@ FPS_SRC, FPS_TPU = "repsurf_torch/csrc/fps.cu", "repsurf_tpu/ops/pallas/fps.py:3
 WINDOW_SRC = "repsurf_torch/csrc/knn_window.cu"
 WINDOW_TPU = "repsurf_tpu/ops/pallas/knn_window.py:60"
 KNN_SRC, KNN_TPU = "repsurf_torch/csrc/knn.cu", "repsurf_tpu/ops/pallas/knn.py:35"
+BALL_SRC = "repsurf_torch/csrc/ball_group.cu"
+BALL_ROWS_TPU = "repsurf_tpu/ops/pallas/ball_group.py:56"
+BALL_FEAT_BWD_TPU = "repsurf_tpu/ops/pallas/ball_group.py:699"
+BALL_ROWS_BWD_TPU = "repsurf_tpu/ops/pallas/ball_group.py:792"
+SCATTER_RTOL = 1e-6  # of the sum of |contributions| of each gradient element
+UMB_GRAD_RTOL = 1e-5  # of max |grad|: the same composition, atomics in its gathers
+UPDATE_RTOL = 1e-3  # SGD update, kernel path against plain path, per parameter,
+UPDATE_FLOOR = 1e-3  # relative to max(its largest update, this share of the global one)
+CLS_PARAMS = 1476791
+CLI_TIMEOUT = 300
 
 
 def phase_card():
@@ -241,25 +272,35 @@ def phase_kernels(dev):
                             device=dev)
         entries.append(check_ball(0.4, 64, xyz2, xyz3, [xyz2, normal2, feat2],
                                   "repsurf_tpu/ops/pallas/ball_group.py:208"))
-    return entries
+    stages = dict(xyz1=xyz1, xyz2=xyz2, xyz3=xyz3, normal1=normal1, normal2=normal2,
+                  feat2=feat2)
+    return entries, stages
 
 
 @contextlib.contextmanager
 def plain_kernels():
     """Route the model's kernel calls to the plain versions, for the
     kernel-path / plain-path comparison of the slice; restored on exit."""
+    import repsurf_torch.data.transforms as transforms
     import repsurf_torch.geometry.umbrella as geo_umbrella
     import repsurf_torch.nn.blocks as blocks
     import repsurf_torch.ops.interpolate as interpolate
+    import repsurf_torch.ops.neighbors as neighbors
     import repsurf_torch.ops.sampling as sampling
     from repsurf_torch.ops.kernels.ball_group import ball_group_feature_plain
     from repsurf_torch.ops.kernels.fps import fps_plain
     from repsurf_torch.ops.kernels.knn import knn_plain
     from repsurf_torch.ops.kernels.umbrella import umbrella_fan_features_plain
+    from repsurf_torch.ops.gather import index_points
 
-    swaps = [(sampling, "fps", fps_plain),
+    def ball_group_plain(radius, nsample, xyz, new_xyz, tensors, valid=None):
+        idx = neighbors.ball_query(radius, nsample, xyz, new_xyz, valid=valid)
+        return [None if t is None else index_points(t, idx) for t in tensors]
+
+    swaps = [(sampling, "fps", fps_plain), (transforms, "fps", fps_plain),
              (geo_umbrella, "umbrella_fan_features", umbrella_fan_features_plain),
              (blocks, "ball_group_feature", ball_group_feature_plain),
+             (neighbors, "ball_group", ball_group_plain),
              (geo_umbrella, "knn", knn_plain), (blocks, "knn", knn_plain),
              (interpolate, "knn", knn_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -333,6 +374,300 @@ def phase_slice(dev):
           f"(CUDA events, median of {REPS}); {cfg.num_votes}-vote eval_step per batch: "
           f"{statistics.median(vote_times):.3f} ms (host clock, median of 5)")
     return launches, by_c
+
+
+def check_scatter(name, replaces, sel, g, n, coff, backward_fn):
+    """The backward kernel at one shape: ``backward_fn`` (the gradient as
+    the autograd Function returns it) twice, bit-equal, and equal to the
+    scatter kernel called on sel; within SCATTER_RTOL of the sum of the
+    |contributions| of each element of a float64 scatter-add."""
+    from repsurf_torch.ops.kernels.ball_group import (
+        ball_scatter,
+        ball_scatter_plain,
+        selection_csr,
+    )
+
+    a, b = backward_fn(), backward_fn()
+    direct = ball_scatter(sel, g, n, coff)
+    torch.cuda.synchronize()
+    if not (torch.equal(a, b) and torch.equal(a, direct)):
+        raise AssertionError(f"{name}: two runs, or the Function and the kernel, differ")
+    ref = ball_scatter_plain(sel, g.double(), n, coff)
+    bound = ball_scatter_plain(sel, g.abs().double(), n, coff)
+    err = (a.double() - ref).abs()
+    if (err > SCATTER_RTOL * bound).any():
+        raise AssertionError(f"{name}: off the float64 scatter-add by more than "
+                             f"{SCATTER_RTOL} of the contributions")
+    worst = float((err / bound.clamp(min=1e-30)).max())
+    csr_ms = median_ms(lambda: selection_csr(sel, n))
+    print(f"  {name}: bit-equal twice; worst |err| / sum|contributions| {worst:.3g} "
+          f"(limit {SCATTER_RTOL}); of the kernel's time, building the point runs "
+          f"{csr_ms:.4f} ms")
+    return _entry(name, BALL_SRC, replaces, float(err.max()),
+                  lambda: ball_scatter(sel, g, n, coff),
+                  lambda: ball_scatter_plain(sel, g, n, coff))
+
+
+def check_ball_rows(radius, nsample, xyz, new_xyz, tcat):
+    """The row-grouping kernel: forward bit-equal to ball_query +
+    index_points, backward through check_scatter."""
+    from repsurf_torch.ops.kernels.ball_group import (
+        ball_group_channels,
+        ball_group_channels_plain,
+    )
+    from repsurf_torch.ops.neighbors import ball_query
+
+    b, m, c = xyz.shape[0], new_xyz.shape[1], tcat.shape[-1]
+    shape = f"{b}x{xyz.shape[1]}->{m},S={nsample},C={c}"
+    with torch.no_grad():
+        out = ball_group_channels(radius, nsample, xyz, new_xyz, tcat)
+        ref = ball_group_channels_plain(radius, nsample, xyz, new_xyz, tcat)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"ball_group[{shape}]: not bit-equal to the gather")
+        fwd = _entry(f"ball_group[{shape}]", BALL_SRC, BALL_ROWS_TPU, 0.0,
+                     lambda: ball_group_channels(radius, nsample, xyz, new_xyz, tcat),
+                     lambda: ball_group_channels_plain(radius, nsample, xyz, new_xyz, tcat))
+    fwd["channels"] = c
+    leaf = tcat.detach().requires_grad_(True)
+    g = torch.randn((b, m, nsample, c), generator=torch.Generator(xyz.device).manual_seed(2),
+                    device=xyz.device)
+
+    def backward():
+        out = ball_group_channels(radius, nsample, xyz, new_xyz, leaf)
+        return torch.autograd.grad(out, leaf, g)[0]
+
+    sel = ball_query(radius, nsample, xyz, new_xyz)
+    bwd = check_scatter(f"ball_group_bwd[{shape}]", BALL_ROWS_BWD_TPU, sel, g, xyz.shape[1],
+                        0, backward)
+    bwd["channels"] = c
+    return [fwd, bwd]
+
+
+def check_feature_backward(radius, nsample, xyz, new_xyz, tcat):
+    from repsurf_torch.ops.kernels.ball_group import ball_group_feature
+    from repsurf_torch.ops.neighbors import ball_query
+
+    b, m, c = xyz.shape[0], new_xyz.shape[1], tcat.shape[-1]
+    leaf = tcat.detach().requires_grad_(True)
+    g = torch.randn((b, m, nsample, c - 3), generator=torch.Generator(xyz.device).manual_seed(3),
+                    device=xyz.device)
+
+    def backward():
+        _, feat = ball_group_feature(radius, nsample, xyz, new_xyz, [leaf], return_polar=True)
+        return torch.autograd.grad(feat, leaf, g)[0]
+
+    sel = ball_query(radius, nsample, xyz, new_xyz)
+    entry = check_scatter(f"ball_feature_bwd[{b}x{xyz.shape[1]}->{m},S={nsample},C={c}]",
+                          BALL_FEAT_BWD_TPU, sel, g, xyz.shape[1], 3, backward)
+    entry["channels"] = c
+    return entry
+
+
+def check_umbrella_grad(xyz):
+    """The umbrella Function's gradient (its backward re-runs the plain
+    composition) against autograd through the plain composition."""
+    from repsurf_torch.ops.kernels.umbrella import (
+        umbrella_fan_features,
+        umbrella_fan_features_plain,
+    )
+
+    x = xyz.detach().requires_grad_(True)
+    out = umbrella_fan_features(x, 9)
+    g = torch.randn(out.shape, generator=torch.Generator(xyz.device).manual_seed(4),
+                    device=xyz.device)
+    got = torch.autograd.grad(out, x, g)[0]
+    want = torch.autograd.grad(umbrella_fan_features_plain(x, 9), x, g)[0]
+    torch.cuda.synchronize()
+    rel = float((got - want).abs().max() / want.abs().max())
+    print(f"  umbrella Function gradient vs the plain composition's "
+          f"[{xyz.shape[0]}x{xyz.shape[1]},k=9]: max |d| / max |grad| {rel:.3g} "
+          f"(limit {UMB_GRAD_RTOL})")
+    if not torch.isfinite(got).all() or rel > UMB_GRAD_RTOL:
+        raise AssertionError("umbrella gradient differs from the plain composition's")
+
+
+def phase_train_kernels(stages):
+    """The backward kernels and the row-grouping kernel at both SA stages'
+    shapes, then ops/neighbors.ball_group driven forward and backward (the
+    row kernel's entry point; no model calls it).  Returns the entries and
+    the entry point's launch counts by channel count."""
+    from repsurf_torch.ops.kernels.ball_group import ball_group_channels
+    from repsurf_torch.ops.neighbors import ball_group
+
+    print("train kernels: the backward and row-grouping kernels against their plain versions")
+    st = {k: v.clone() for k, v in stages.items()}  # out of inference mode
+    sa = ((0.2, 32, st["xyz1"], st["xyz2"], [st["normal1"]]),
+          (0.4, 64, st["xyz2"], st["xyz3"], [st["normal2"], st["feat2"]]))
+    entries = []
+    for radius, nsample, xyz, q, rest in sa:
+        tcat = torch.cat([xyz, *rest], dim=-1)
+        entries.append(check_feature_backward(radius, nsample, xyz, q, tcat))
+        entries += check_ball_rows(radius, nsample, xyz, q, tcat)
+    check_umbrella_grad(st["xyz1"])
+
+    ball_group_channels.launches_by_channels.clear()
+    ball_group_channels.backward_launches_by_channels.clear()
+    for radius, nsample, xyz, q, rest in sa:
+        leaves = [t.detach().requires_grad_(True) for t in rest]
+        grouped = ball_group(radius, nsample, xyz, q, [xyz, None, *leaves])
+        torch.cat([grouped[0], *grouped[2:]], dim=-1).square().sum().backward()
+        if any(t.grad is None for t in leaves):
+            raise AssertionError("ops/neighbors.ball_group: no gradient reached its inputs")
+    torch.cuda.synchronize()
+    fwd = dict(ball_group_channels.launches_by_channels)
+    bwd = dict(ball_group_channels.backward_launches_by_channels)
+    print(f"  ops/neighbors.ball_group forward and backward at both stages: launches by C "
+          f"{fwd}, backward {bwd}")
+    return entries, fwd, bwd
+
+
+def phase_cls_train(dev, profile=False):
+    """One epoch and 8 timed steps of the classification trainer, then the
+    kernel path against the plain path over one SGD step."""
+    from repsurf_torch.data.scanobjectnn import SyntheticClouds, iterate_batches
+    from repsurf_torch.nn.blocks import SharedMLP, SurfaceAbstractionCD
+    from repsurf_torch.nn.layers import Linear, MaskedBatchNorm
+    from repsurf_torch.ops.kernels.ball_group import ball_group_feature
+    from repsurf_torch.ops.kernels.fps import fps
+    from repsurf_torch.ops.kernels.umbrella import umbrella_fan_features
+    from repsurf_torch.train.train_cls import (
+        ClsConfig,
+        build_model,
+        make_optimizer,
+        train_epoch,
+        train_step,
+    )
+    from repsurf_torch.utils import epoch_generator
+
+    cfg = ClsConfig()
+    model = build_model(cfg, generator=torch.Generator().manual_seed(cfg.seed)).to(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != CLS_PARAMS:
+        raise AssertionError(f"repsurf_ssg_umb has {n_params} parameters, not {CLS_PARAMS}")
+    opt = make_optimizer(model, cfg)
+    data = SyntheticClouds(n_samples=8 * cfg.batch_size, seed=0)
+
+    counters = (fps, umbrella_fan_features, ball_group_feature)
+    for k in counters:
+        k.launches = 0
+    ball_group_feature.launches_by_channels.clear()
+    ball_group_feature.backward_launches_by_channels.clear()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epoch_loss, epoch_acc = train_epoch(model, opt, data, cfg, 0, epoch_generator(cfg.seed, 0, dev),
+                                        rng=np.random.RandomState(0))
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in counters}
+    fwd_c = dict(ball_group_feature.launches_by_channels)
+    bwd_c = dict(ball_group_feature.backward_launches_by_channels)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(f"cls train slice: repsurf_ssg_umb ({n_params} parameters), ClsConfig defaults, "
+          f"{len(data)} clouds, train_epoch of {len(data) // cfg.batch_size} steps "
+          f"(batch {cfg.batch_size}, {RAW_POINTS}->{cfg.num_point}): {epoch_s:.3f} s, "
+          f"loss {epoch_loss}, acc {epoch_acc}; launches {launches}, ball_feature by C "
+          f"{fwd_c}, backward by C {bwd_c}; peak memory {peak_gb:.2f} GiB")
+    if (min(launches.values()) == 0 or any(d.get(c, 0) == 0 for d in (fwd_c, bwd_c)
+                                           for c in (13, 141))):
+        raise AssertionError("a kernel of the cls train path was not launched")
+
+    gen = epoch_generator(cfg.seed, 1, dev)
+    batches = [(torch.from_numpy(p).to(dev), torch.from_numpy(t).to(dev)) for p, t in
+               iterate_batches(data, cfg.batch_size, shuffle=True, drop_last=True,
+                               rng=np.random.RandomState(1))]
+    step_ms, losses = [], []
+    for points, target in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = train_step(model, opt, points, target, cfg, generator=gen)
+        losses.append(float(loss))  # synchronises
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(step_ms)
+    print(f"  train steps (host clock, synchronised): {[round(t, 3) for t in step_ms]} ms, "
+          f"median {med:.3f} ms = {cfg.batch_size / (med / 1e3):.3f} clouds/s")
+    print(f"  losses {losses}")
+    if not all(math.isfinite(x) for x in [*losses, epoch_loss]):
+        raise AssertionError("a cls train loss is not finite")
+
+    # one SGD step from the same weights on the kernel path and the plain path
+    sgd = dataclasses.replace(cfg, optimizer="SGD", learning_rate=0.01, momentum=0.0,
+                              head_dropout=0.0)
+    mk = build_model(sgd, generator=torch.Generator().manual_seed(0)).to(dev)
+    mk.load_state_dict(model.state_dict())
+    mp = copy.deepcopy(mk)
+    pre = {k: p.detach().clone() for k, p in mk.named_parameters()}
+    points, target = batches[0]
+    sign = torch.where(torch.arange(BATCH, device=dev) % 3 == 0, -1.0, 1.0)
+    train_step(mk, make_optimizer(mk, sgd), points, target, sgd, signs=sign)
+    with plain_kernels():
+        train_step(mp, make_optimizer(mp, sgd), points, target, sgd, signs=sign)
+    # a Linear bias feeding a train-mode BN has an exact gradient of 0 (the
+    # BN removes the batch mean): its update is rounding noise on both paths
+    zero_grad = set()
+    for name, mod in mk.named_modules():
+        if isinstance(mod, torch.nn.Sequential):
+            kids = list(mod.named_children())
+            zero_grad |= {f"{name}.{a}.bias" for (a, la), (_, lb) in zip(kids, kids[1:])
+                          if isinstance(la, Linear) and la.bias is not None
+                          and isinstance(lb, MaskedBatchNorm)}
+        if isinstance(mod, SharedMLP):
+            zero_grad |= {f"{name}.mlp_convs.{j}.bias" for j in range(len(mod.mlp_convs))}
+        if isinstance(mod, SurfaceAbstractionCD):
+            zero_grad |= {f"{name}.mlp_l0.bias", f"{name}.mlp_f0.bias"}
+    kp, pp = dict(mk.named_parameters()), dict(mp.named_parameters())
+    upd = {k: (kp[k].detach() - pre[k], pp[k].detach() - pre[k]) for k in pre}
+    scale = max(float(dp.abs().max()) for _, dp in upd.values())
+    err = {k: float((dk - dp).abs().max()) for k, (dk, dp) in upd.items()}
+    leaf = {k: float(dp.abs().max()) for k, (_, dp) in upd.items()}
+    ratios = {k: err[k] / max(leaf[k], UPDATE_FLOOR * scale) for k in upd if k not in zero_grad}
+    noise = max(max(float(dk.abs().max()), leaf[k])
+                for k, (dk, _) in upd.items() if k in zero_grad) / scale
+    worst = max(ratios, key=ratios.get)
+    print(f"  kernel path vs plain path, one SGD step (lr 0.01, dropout 0, fixed sign): "
+          f"worst max |d update| / max(max |plain update|, {UPDATE_FLOOR} of the largest) "
+          f"{ratios[worst]:.3g} at {worst} (limit {UPDATE_RTOL}) over {len(ratios)} "
+          f"parameters; the {len(zero_grad)} BN-fed biases (exact gradient 0) move at most "
+          f"{noise:.3g} of the largest update {scale:.4g}")
+    for k in sorted(ratios, key=lambda k: err[k] / max(leaf[k], 1e-30))[-3:]:
+        print(f"    {k}: max |d update| {err[k]:.3g}, max |plain update| {leaf[k]:.3g}")
+    if ratios[worst] > UPDATE_RTOL or noise > UPDATE_RTOL:
+        raise AssertionError("the cls train step differs between kernel and plain paths")
+    if profile:
+        points, target = batches[1]
+        profile_train_step(lambda: train_step(model, opt, points, target, cfg, generator=gen))
+    return launches, fwd_c, bwd_c
+
+
+def phase_cli():
+    """The training CLI on the card, then its resume."""
+    here = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as root:
+        base = [sys.executable, "-m", "repsurf_torch.cli.train_cls", "--synthetic",
+                "--min_val", "0", "--log_root", root, "--device", "cuda"]
+        runs = []
+        for epochs in (2, 3):
+            t0 = time.perf_counter()
+            proc = subprocess.run([*base, "--epoch", str(epochs)], cwd=here, capture_output=True,
+                                  text=True, timeout=CLI_TIMEOUT)
+            runs.append((proc, time.perf_counter() - t0))
+            if proc.returncode != 0:
+                raise AssertionError(f"train_cls --epoch {epochs} exited {proc.returncode}:\n"
+                                     f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+            if epochs == 2:
+                ckpt = Path(root) / "ScanObjectNN" / "default" / "checkpoints" / "best.pt"
+                saved = torch.load(ckpt, map_location="cpu", weights_only=True)["epoch"]
+    for proc, secs in runs:
+        for line in proc.stdout.splitlines():
+            if " epoch " in line or "single " in line or "resumed" in line:
+                print("  cli: " + line.split("] ", 1)[-1])
+    print(f"cli: two runs of python -m repsurf_torch.cli.train_cls --synthetic --min_val 0, "
+          f"--epoch 2 then --epoch 3: {runs[0][1]:.1f} s and {runs[1][1]:.1f} s (process start "
+          f"and data included); the best checkpoint holds epoch {saved}")
+    resumed = runs[1][0].stdout
+    if f"resumed from epoch {saved}" not in resumed or "epoch 3/3" not in resumed:
+        raise AssertionError("the second CLI run did not resume from the checkpoint")
 
 
 def check_polar(xyz):
@@ -570,7 +905,7 @@ def main():
     phase_build()
     seconds["card+build"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    entries = phase_kernels(dev)
+    entries, stages = phase_kernels(dev)
     seconds["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     launches, by_c = phase_slice(dev)
@@ -582,6 +917,20 @@ def main():
         else:
             e["launches"] = launches[{"fps": "fps", "umbrella": "umbrella_fan_features"}[name]]
     t0 = time.perf_counter()
+    train_entries, rows_fwd, rows_bwd = phase_train_kernels(stages)
+    del stages
+    seconds["train kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, _, feat_bwd = phase_cls_train(dev, profile=profile)
+    seconds["cls train slice"] = time.perf_counter() - t0
+    for e in train_entries:
+        counts = {"ball_feature_bwd": feat_bwd, "ball_group": rows_fwd,
+                  "ball_group_bwd": rows_bwd}[e["name"].split("[")[0]]
+        e["launches"] = counts.get(e.pop("channels"), 0)
+    t0 = time.perf_counter()
+    phase_cli()
+    seconds["cli"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     seg_entries = phase_seg_kernels(dev)
     seconds["seg kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -591,7 +940,7 @@ def main():
         e["launches"] = seg_launches[{"fps": "fps", "knn_window": "knn_window",
                                       "knn": "knn_brute"}[e["name"].split("[")[0]]]
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
-    print(json.dumps({"kernels": entries + seg_entries}))
+    print(json.dumps({"kernels": entries + train_entries + seg_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,14 +1,40 @@
-"""Synthetic ScanObjectNN-shaped clouds and a host-side batcher
-(repsurf_tpu/data/scanobjectnn.py, numpy only).
+"""ScanObjectNN, synthetic ScanObjectNN-shaped clouds and a host-side
+batcher (repsurf_tpu/data/scanobjectnn.py, numpy only).
 
 The same seed gives the same clouds as the JAX package's
 ``SyntheticClouds``.
 """
 
+import os
+
 import numpy as np
 
 NUM_CLASS = 15
 NUM_POINT_RAW = 2048
+
+
+class ScanObjectNNDataset:
+    """The PB_T50_RS (hardest) variant's h5 files: 2,048-point clouds, 15
+    classes, background kept unless ``bg`` is False
+    (classification/dataset/ScanObjectNNDataLoader.py:13-35).  Returns
+    channels-last [N, 3] clouds.  ``h5py`` is imported only here."""
+
+    def __init__(self, root, split="training", bg=True):
+        if split not in ("training", "test"):
+            raise ValueError(f"split must be 'training' or 'test', got {split!r}")
+        dir_name = "main_split" if bg else "main_split_nobg"
+        h5_name = os.path.join(root, dir_name, split + "_objectdataset_augmentedrot_scale75.h5")
+        import h5py
+
+        with h5py.File(h5_name, mode="r") as f:
+            self.data = f["data"][:].astype(np.float32)  # [S, 2048, 3]
+            self.label = f["label"][:].astype(np.int64)
+
+    def __len__(self):
+        return self.data.shape[0]
+
+    def __getitem__(self, index):
+        return self.data[index], self.label[index]
 
 
 class SyntheticClouds:

@@ -9,7 +9,7 @@ import torch
 from torch import nn
 
 from ..nn.blocks import SurfaceAbstractionCD, UmbrellaSurfaceConstructor
-from ..nn.layers import Linear, MaskedBatchNorm
+from ..nn.layers import Dropout, Linear, MaskedBatchNorm
 
 REPSURF_CHANNEL = 10
 
@@ -17,9 +17,11 @@ REPSURF_CHANNEL = 10
 class RepSurfClassifier(nn.Module):
     """Umbrella RepSurf + PointNet++-SSG classifier (repsurf_ssg_umb).
 
-    The per-sample random inversion of the umbrella normals is an input:
-    ``forward(points, inv_sign)`` with ``inv_sign`` [B] of +-1, or None for
-    no inversion.  Parameters are drawn from ``generator`` when given.
+    ``forward(points, inv_sign, generator)``: the per-sample random
+    inversion of the umbrella normals is an input, ``inv_sign`` [B] of +-1,
+    or None for no inversion (the train step draws it); ``generator`` feeds
+    the head's dropout in training.  Parameters are drawn from
+    ``generator`` at construction when one is given.
     """
 
     def __init__(self, num_class=15, group_size=8, return_polar=True,
@@ -49,19 +51,21 @@ class RepSurfClassifier(nn.Module):
         layers, c = [], final_mlp[-1]
         for h in head_hidden:
             layers += [Linear(c, h, generator=gen), MaskedBatchNorm(h), nn.ReLU(),
-                       nn.Dropout(head_dropout)]
+                       Dropout(head_dropout)]
             c = h
         layers.append(Linear(c, num_class, generator=gen))
         self.classfier = nn.Sequential(*layers)
 
-    def forward(self, points, inv_sign=None):
+    def forward(self, points, inv_sign=None, generator=None):
         center = points[..., :3]
         normal = self.surface_constructor(center, inv_sign=inv_sign)
         feature = None
         for i in range(1, self.n_sa + 1):
             center, normal, feature, _ = getattr(self, f"sa{i}")(center, normal, feature)
-        feature = feature.reshape(feature.shape[0], -1)
-        return torch.log_softmax(self.classfier(feature), dim=-1)
+        x = feature.reshape(feature.shape[0], -1)
+        for layer in self.classfier:
+            x = layer(x, generator=generator) if isinstance(layer, Dropout) else layer(x)
+        return torch.log_softmax(x, dim=-1)
 
 
 def repsurf_ssg_umb(num_class=15, **kw):

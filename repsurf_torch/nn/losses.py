@@ -1,6 +1,26 @@
-"""The segmentation loss (repsurf_tpu/nn/losses.py weighted_cross_entropy)."""
+"""The training losses (repsurf_tpu/nn/losses.py): the classifier's
+label-smoothed NLL and the segmentation's weighted cross-entropy."""
 
 import torch
+
+
+def smooth_cls_loss(log_probs, target, smoothing_ratio=0.1):
+    """Label-smoothed NLL over log-probabilities (the reference's
+    SmoothClsLoss): the target class weighs 1 - eps, every other class
+    eps / (K - 1).
+
+    Args:
+      log_probs: [B, K] log-probabilities (the model's output).
+      target: [B] int labels.
+
+    Returns:
+      the scalar mean over the batch.
+    """
+    eps = smoothing_ratio
+    k = log_probs.shape[-1]
+    one_hot = torch.nn.functional.one_hot(target.long(), k).to(log_probs.dtype)
+    smoothed = one_hot * (1 - eps) + (1 - one_hot) * eps / (k - 1)
+    return -(smoothed * log_probs).sum(dim=-1).mean()
 
 
 def weighted_cross_entropy(logits, target, class_weight=None, ignore_index=255):

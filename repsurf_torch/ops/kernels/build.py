@@ -40,9 +40,14 @@ _SIGNATURES = {
     "repsurf_umbrella_cls": (_I, [_P, _P, _I, _I, _I, _P, _P, _P]),
     "repsurf_ball_feature": (
         _I,
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P, _P, _P],
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P, _P, _P, _P],
     ),
     "repsurf_ball_feature_max_nsample": (_I, []),
+    "repsurf_ball_group": (
+        _I,
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P, _P, _P],
+    ),
+    "repsurf_ball_scatter": (_I, [_P, _P, _P, _I, _I, _I, _P, _P]),
     "repsurf_knn": (_I, [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P]),
     "repsurf_knn_max_k": (_I, []),
     "repsurf_knn_window": (

@@ -4,13 +4,14 @@ import torch
 
 
 def forward_only(*tensors):
-    """The kernels have no backward yet: refuse, rather than silently cut,
-    a graph that would need one."""
+    """For a kernel whose outputs are indices (FPS): refuse, rather than
+    silently cut, a graph that would need a gradient through it."""
     if torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors
     ):
         raise NotImplementedError(
-            "this kernel is forward-only: backward lands with the training slice"
+            "this kernel returns indices and has no backward: pass coordinates "
+            "that do not require grad (detach them)"
         )
 
 

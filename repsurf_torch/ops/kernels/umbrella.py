@@ -7,12 +7,18 @@ dropped, plain azimuth sort, channels [center, polar, normal, const].
 ``umbrella_fan_features`` runs the plain version for a tensor on the CPU
 and the kernel for a tensor on a CUDA device.  Neither applies the
 per-sample normal inversion; geometry.umbrella.umbrella_features does.
+
+Gradient: the kernel has no backward of its own.  As in the JAX package
+(repsurf_tpu/geometry/umbrella.py:198-249, _umbrella_pallas_xla_vjp), the
+gradient with respect to xyz is that of the plain composition, recomputed
+on the same inputs in the backward pass.  The stock models feed data
+coordinates, so this backward never runs in them.
 """
 
 import torch
 
 from . import build
-from .common import check_launch, counts_i32, cuda_f32, forward_only, ptr, stream
+from .common import check_launch, counts_i32, cuda_f32, ptr, stream
 from .knn import knn_plain
 
 CHANNELS = 10
@@ -38,11 +44,40 @@ def umbrella_fan_features_plain(xyz, k, valid=None, return_knn=False):
     return feat
 
 
+class _UmbrellaFans(torch.autograd.Function):
+    """The kernel forward; the plain composition's vector-Jacobian product
+    as the backward (see the module doc)."""
+
+    @staticmethod
+    def forward(ctx, xyz, valid, k, return_knn):
+        b, n = xyz.shape[0], xyz.shape[1]
+        out = torch.empty((b, n, k - 1, CHANNELS), dtype=torch.float32, device=xyz.device)
+        idx = torch.empty((b, n, k), dtype=torch.int32, device=xyz.device) if return_knn else None
+        status = build.library().repsurf_umbrella_cls(
+            ptr(xyz), ptr(valid), b, n, k, ptr(out), ptr(idx), stream(xyz.device)
+        )
+        check_launch(status, "repsurf_umbrella_cls")
+        umbrella_fan_features.launches += 1
+        if idx is not None:
+            ctx.mark_non_differentiable(idx)
+        ctx.save_for_backward(xyz, valid)
+        ctx.k = k
+        return out, idx
+
+    @staticmethod
+    def backward(ctx, g, g_idx):
+        xyz, valid = ctx.saved_tensors
+        with torch.enable_grad():
+            x = xyz.detach().requires_grad_(True)
+            feat = umbrella_fan_features_plain(x, ctx.k, valid=valid)
+            (dx,) = torch.autograd.grad(feat, x, g)
+        return dx, None, None, None
+
+
 def umbrella_fan_features(xyz, k, valid=None, return_knn=False):
     """Umbrella fan features (see the module doc); the plain version on the
     CPU, the CUDA kernel on a CUDA device.  Same arguments and return as
     ``umbrella_fan_features_plain``."""
-    forward_only(xyz)
     if xyz.device.type == "cpu":
         return umbrella_fan_features_plain(xyz, k, valid=valid, return_knn=return_knn)
     if k != KERNEL_K:
@@ -50,17 +85,7 @@ def umbrella_fan_features(xyz, k, valid=None, return_knn=False):
     b, n = xyz.shape[0], xyz.shape[1]
     xyz = cuda_f32(xyz, "xyz", (b, n, 3))
     valid = counts_i32(valid, b, xyz.device)
-    out = torch.empty((b, n, k - 1, CHANNELS), dtype=torch.float32, device=xyz.device)
-    idx = (
-        torch.empty((b, n, k), dtype=torch.int32, device=xyz.device)
-        if return_knn
-        else None
-    )
-    status = build.library().repsurf_umbrella_cls(
-        ptr(xyz), ptr(valid), b, n, k, ptr(out), ptr(idx), stream(xyz.device)
-    )
-    check_launch(status, "repsurf_umbrella_cls")
-    umbrella_fan_features.launches += 1
+    out, idx = _UmbrellaFans.apply(xyz, valid, k, return_knn)
     return (out, idx) if return_knn else out
 
 

@@ -11,6 +11,15 @@ summed left to right, as the kernels compute them (the JAX package's XLA
 route uses ``|q|^2 + |p|^2 - 2 q.p`` instead, which can differ by an ulp
 and so at exact ties and radius boundaries).  Selections break ties on the
 lowest index, never by ``topk``'s own order.
+
+``ball_group`` takes the plain version (``ball_query`` + ``index_points``)
+for tensors on the CPU and the row-grouping kernel
+(``kernels/ball_group.ball_group_channels``, with its scatter-add backward)
+for every tensor on a CUDA device, group sizes up to 128.  The JAX package
+routes to its Pallas twin only for C >= 43 and N <= 2048
+(ops/neighbors.py:227-240): that bound is how full the TPU's 128-lane
+capture matmul runs, and means nothing on a GPU, which gathers rows
+natively.
 """
 
 import torch
@@ -76,6 +85,22 @@ def ball_query(radius, nsample, xyz, new_xyz, valid=None):
 
 def ball_group(radius, nsample, xyz, new_xyz, tensors, valid=None):
     """Ball query + gather of each tensor: ``index_points(t, ball_query(...))``
-    for every [B, N, C_i] entry (None passes through)."""
-    idx = ball_query(radius, nsample, xyz, new_xyz, valid=valid)
-    return [None if t is None else index_points(t, idx) for t in tensors]
+    for every [B, N, C_i] entry (None passes through); on a CUDA device one
+    launch of the row-grouping kernel over the tensors' concatenation."""
+    if xyz.device.type == "cpu":
+        idx = ball_query(radius, nsample, xyz, new_xyz, valid=valid)
+        return [None if t is None else index_points(t, idx) for t in tensors]
+    # imported here: kernels.ball_group imports ball_query from this module
+    from .kernels.ball_group import ball_group_channels
+
+    live = [t for t in tensors if t is not None]
+    tcat = torch.cat(live, dim=-1) if len(live) > 1 else live[0]
+    grouped = ball_group_channels(radius, nsample, xyz, new_xyz, tcat, valid=valid)
+    out, start = [], 0
+    for t in tensors:
+        if t is None:
+            out.append(None)
+            continue
+        out.append(grouped[..., start:start + t.shape[-1]])
+        start += t.shape[-1]
+    return out

@@ -179,12 +179,15 @@ def test_ball_feature_empty_ball_and_wrapper():
 
 
 def test_wrappers_refuse_a_graph_that_needs_backward():
+    """FPS returns indices and refuses a graph through it; the umbrella and
+    ball-feature wrappers carry gradients (their plain versions here)."""
     xyz = _t(_cloud(8, n=32)).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="indices"):
         fps(xyz, 4)
-    with pytest.raises(NotImplementedError):
-        umbrella_fan_features(xyz, 9)
-    with pytest.raises(NotImplementedError):
-        ball_group_feature(0.3, 4, xyz, xyz[:, :4], [xyz])
     with torch.no_grad():
         assert fps(xyz, 4).shape == (B, 4)
+    feat = umbrella_fan_features(xyz, 9)
+    _, grouped = ball_group_feature(0.3, 4, xyz, xyz[:, :4], [xyz, feat.sum(dim=2)])
+    grouped.sum().backward()
+    assert xyz.grad is not None and torch.isfinite(xyz.grad).all()
+    assert xyz.grad.abs().sum() > 0

@@ -9,7 +9,15 @@ Run from the root of a checkout.  Phases, each printing its lines:
   2. build   - compiles repsurf_torch/csrc/*.cu with nvcc, prints the time;
   3. kernels - each CUDA kernel against its plain PyTorch version on the
                card, at the shapes of the classification eval path, with
-               kernel and plain times (CUDA events, median of 20 runs);
+               kernel and plain times (CUDA events, median of 20 runs), the
+               bound and, where one PyTorch call computes the same
+               function, that call's time;
+  3b. umbrella kernels - tq, full and slab against the plain composition
+               at the cls shape (C = 10, and C = 9 for tq) and at a small
+               room's pass (the seg style), full bit-equal to tq, the slab's
+               re-solved queries per sample equal to the plain guard
+               replay's, the seg-style gradient; the kernel entry driven
+               with impl full and slab for their launch counts;
   4. slice   - repsurf_ssg_umb at full width, seeded random weights, vote
                evaluation (batch 64, 2048 -> 1024 points, 10 votes) through
                the kernels; launch counts, finite log-probs, kernel path
@@ -43,7 +51,17 @@ Run from the root of a checkout.  Phases, each printing its lines:
                80,000-point rooms; launch counts, finite losses, kernel path
                against plain path on one eval forward, step times (with
                --profile also a torch.profiler table of one train step);
-  10. a JSON line of the kernels, then {"ok": true, "device": {...}}.
+  10. scene    - whole-scene inference of repsurf_umb_ssg at full width,
+               seeded random weights: predict_scene with device votes and
+               the median filter on R1 (a 120,000-point 8 x 8 x 3 m room,
+               80,000-point chunks) and R2 (a 12,000-point 3 x 3 x 2.6 m
+               room, whose 12,288-point passes take the seg-style umbrella
+               kernel); chunks, seconds, launch counts by kernel and by
+               umbrella style; device-mode labels against host-mode labels
+               away from vote ties; one R2 batch on the kernel path against
+               the plain path; python -m repsurf_torch.cli.test_s3dis
+               --synthetic with its mIoU/mAcc/OA line;
+  11. a JSON line of the kernels, then {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.
@@ -88,6 +106,15 @@ UPDATE_RTOL = 1e-3  # SGD update, kernel path against plain path, per parameter,
 UPDATE_FLOOR = 1e-3  # relative to max(its largest update, this share of the global one)
 CLS_PARAMS = 1476791
 CLI_TIMEOUT = 300
+UMB_SRC, UMB_TPU = "repsurf_torch/csrc/umbrella.cu", "repsurf_tpu/ops/pallas/umbrella.py"
+UMB_REPLACES = {"tq": UMB_TPU + ":302", "full": UMB_TPU + ":88", "slab": UMB_TPU + ":606"}
+SEG_ROOM_POINTS, SEG_ROOM_SIZE = 12288, (3.0, 3.0, 2.6)  # a small room's pass, R2's shape
+R1_POINTS, R2_POINTS = 120000, 12000
+VOTE_TIE = 1e-6  # top-two vote-averaged probability gap, device against host mode
+# H100 SXM data sheet: float32 outside the tensor cores, HBM3
+PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+KNN_FLOPS = 8  # one squared distance: 3 differences, 3 products, 2 sums
+FPS_FLOPS = 9  # a distance and the running minimum
 
 
 def phase_card():
@@ -151,11 +178,29 @@ def adaptive_ms(fn):
     return median_ms(fn, reps=max(3, min(REPS, int(SLOW_MS / max(first, 1e-3)))), warm=1)
 
 
-def _entry(name, source, replaces, err, kernel_fn, plain_fn, timer=median_ms):
+def bound(flops, nbytes):
+    """(ms, 'operations' | 'bytes'): the least time the card could take for
+    work of ``flops`` float32 operations moving ``nbytes`` (each input read
+    once, each output written once)."""
+    t_ops, t_mem = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def _entry(name, source, replaces, err, kernel_fn, plain_fn, work, timer=median_ms,
+           library_fn=None):
+    """One kernels-JSON entry: the kernel's and its plain version's times,
+    ``work`` = (flops, bytes) of this call for the bound, and the time of
+    ``library_fn``, one PyTorch call computing the same function, where one
+    exists."""
     ms, plain_ms = timer(kernel_fn), timer(plain_fn)
-    print(f"  {name}: max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    library_ms = None if library_fn is None else timer(library_fn)
+    bound_ms, bound_by = bound(*work)
+    lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+    print(f"  {name}: max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
+          f"bound {bound_ms:.4f} ms ({bound_by})")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 def check_fps(xyz, npoint):
@@ -169,45 +214,84 @@ def check_fps(xyz, npoint):
         raise AssertionError(f"fps {tuple(xyz.shape)}->{npoint}: indices differ")
     if not torch.equal(sam, index_points(xyz, idx)):
         raise AssertionError("fps: sampled xyz differ from the gather")
+    b, n = xyz.shape[0], xyz.shape[1]
     return idx, sam, _entry(
-        f"fps[{xyz.shape[0]}x{xyz.shape[1]}->{npoint}]",
+        f"fps[{b}x{n}->{npoint}]",
         "repsurf_torch/csrc/fps.cu", "repsurf_tpu/ops/pallas/fps.py:36", 0.0,
         lambda: fps(xyz, npoint, return_xyz=True), lambda: fps_plain(xyz, npoint),
+        (FPS_FLOPS * b * npoint * n, 4 * (3 * b * n + 4 * b * npoint)),
     )
 
 
-def check_umbrella(xyz):
-    from repsurf_torch.geometry.polar import xyz2sphere
-    from repsurf_torch.ops.gather import index_points
+def umbrella_near_ties(xyz, k, style, valid=None):
+    """[B, N] azimuth near-tie points of the style's fans (NEAR_TIE gap)."""
+    from repsurf_torch.geometry.umbrella import azimuth_near_ties
+
+    return azimuth_near_ties(xyz, k, drop_self=style == "cls", rotate=style == "seg",
+                             valid=valid, gap=NEAR_TIE)
+
+
+def check_umbrella(impl, xyz, style, return_dist=True, valid=None, near=None, k=9,
+                   timed=True):
+    """One umbrella kernel against the plain composition: within UMB_ATOL
+    away from azimuth near-ties (at most 0.1 % of the points); the slab's
+    re-solved queries per sample equal to the plain guard replay's.
+    Returns (features, its kernels-JSON entry when ``timed``, else None)."""
     from repsurf_torch.ops.kernels.umbrella import (
-        umbrella_fan_features,
+        SLAB,
+        fan_shape,
+        slab_guard_plain,
         umbrella_fan_features_plain,
+        umbrella_features_kernel,
     )
 
-    feat, knn_idx = umbrella_fan_features(xyz, 9, return_knn=True)
-    pfeat, pknn = umbrella_fan_features_plain(xyz, 9, return_knn=True)
+    args = dict(drop_self=style == "cls", rotate=style == "seg", return_dist=return_dist,
+                style=style, valid=valid)
+    b, n = xyz.shape[0], xyz.shape[1]
+    g, c = fan_shape(k, args["drop_self"], return_dist)
+    tag = f"umbrella_{impl}[{b}x{n},k={k},{style},C={c}]"
+    feat = umbrella_features_kernel(xyz, k, impl=impl, **args)
+    pfeat = umbrella_fan_features_plain(xyz, k, **args)
     torch.cuda.synchronize()
-    if not torch.equal(knn_idx, pknn):
-        raise AssertionError(f"umbrella: kNN differs at {(knn_idx != pknn).sum()} slots")
-    rel = index_points(xyz, pknn[:, :, 1:]) - xyz[:, :, None, :]
-    phi = torch.sort(xyz2sphere(rel)[..., 2], dim=-1).values
-    near = torch.diff(phi, dim=-1).amin(-1) < NEAR_TIE  # [B, N]
+    live = torch.ones((b, n), dtype=torch.bool, device=xyz.device)
+    if valid is not None:
+        live = torch.arange(n, device=xyz.device)[None] < valid[:, None]
+    rows = live if impl == "slab" else torch.ones_like(live)  # slab: padded rows unspecified
+    near = umbrella_near_ties(xyz, k, style, valid) if near is None else near
     err = (feat - pfeat).abs().amax(dim=(2, 3))
-    off = err > UMB_ATOL
+    off = (err > UMB_ATOL) & rows
     n_near, n_pts = int(near.sum()), near.numel()
-    print(f"  umbrella near-tie points (azimuth gap < {NEAR_TIE}): {n_near} of {n_pts}; "
-          f"points off by > {UMB_ATOL}: {int(off.sum())}")
+    nv = n * b if valid is None else int(valid.sum())
+    pairs = n * nv
+    extra = ""
+    if impl == "slab":
+        resolved = umbrella_features_kernel.slab_resolved
+        replay = slab_guard_plain(xyz, k, valid).sum(dim=1)
+        if not torch.equal(resolved, replay):
+            raise AssertionError(f"{tag}: re-solved {resolved.tolist()}, the plain guard "
+                                 f"replay {replay.tolist()}")
+        extra = f"; re-solved queries per sample {resolved.tolist()} = the plain guard replay's"
+        # the window's candidates, then the brute re-solve of each flagged query
+        pairs = 3 * SLAB * n * b + int(resolved.sum()) * (nv // b)
+    print(f"  {tag}: near-tie points {n_near} of {n_pts}; points off by > {UMB_ATOL}: "
+          f"{int(off.sum())}{extra}")
     if (off & ~near).any():
-        raise AssertionError(f"umbrella: {int((off & ~near).sum())} points differ "
+        raise AssertionError(f"{tag}: {int((off & ~near).sum())} points differ "
                              f"beyond {UMB_ATOL} away from azimuth near-ties")
+    if not torch.isfinite(feat[rows]).all():
+        raise AssertionError(f"{tag}: features not finite")
     if n_near > NEAR_TIE_SHARE * n_pts:
-        raise AssertionError(f"umbrella: {n_near} near-tie points exceed 0.1%")
-    return _entry(
-        f"umbrella[{xyz.shape[0]}x{xyz.shape[1]},k=9]",
-        "repsurf_torch/csrc/umbrella.cu", "repsurf_tpu/ops/pallas/umbrella.py:302",
-        float(err[~near].max()),
-        lambda: umbrella_fan_features(xyz, 9), lambda: umbrella_fan_features_plain(xyz, 9),
+        raise AssertionError(f"{tag}: {n_near} near-tie points exceed 0.1%")
+    if not timed:
+        return feat, None
+    entry = _entry(
+        tag, UMB_SRC, UMB_REPLACES[impl], float(err[rows & ~near].max()),
+        lambda: umbrella_features_kernel(xyz, k, impl=impl, **args),
+        lambda: umbrella_fan_features_plain(xyz, k, **args),
+        (KNN_FLOPS * pairs, 4 * (3 * b * n + b * n * g * c)),
     )
+    entry.update(impl=impl, style=style)
+    return feat, entry
 
 
 def check_ball(radius, nsample, xyz, new_xyz, tensors, replaces):
@@ -235,11 +319,16 @@ def check_ball(radius, nsample, xyz, new_xyz, tensors, replaces):
     err = float((pos - ppos).abs().max())
     if err > POS_ATOL:
         raise AssertionError(f"ball C={c}: pos off by {err}")
+    b, n, m = xyz.shape[0], xyz.shape[1], new_xyz.shape[1]
     entry = _entry(
-        f"ball_feature[{xyz.shape[0]}x{xyz.shape[1]}->{new_xyz.shape[1]},S={nsample},C={c}]",
+        f"ball_feature[{b}x{n}->{m},S={nsample},C={c}]",
         "repsurf_torch/csrc/ball_group.cu", replaces, err,
         lambda: ball_group_feature(*args, return_polar=True),
         lambda: ball_group_feature_plain(*args, return_polar=True),
+        # the ball query's distances; xyz, centers and channels in, pos (6)
+        # and feat (C - 3) out
+        (KNN_FLOPS * b * m * n, 4 * (3 * b * n + 3 * b * m + b * n * c
+                                     + b * m * nsample * (6 + c - 3))),
     )
     entry["channels"] = c
     return entry
@@ -260,7 +349,6 @@ def phase_kernels(dev):
         entries.append(e)
         idx3, xyz3, e = check_fps(xyz2, 128)
         entries.append(e)
-        entries.append(check_umbrella(xyz1))
         # realistic SA inputs: umbrella constructor normals, random features
         gen = torch.Generator().manual_seed(0)
         model = get_model("repsurf.repsurf_ssg_umb", generator=gen).to(dev).eval()
@@ -297,8 +385,11 @@ def plain_kernels():
         idx = neighbors.ball_query(radius, nsample, xyz, new_xyz, valid=valid)
         return [None if t is None else index_points(t, idx) for t in tensors]
 
+    def umbrella_plain(xyz, k, impl="auto", **kw):
+        return umbrella_fan_features_plain(xyz, k, **kw)
+
     swaps = [(sampling, "fps", fps_plain), (transforms, "fps", fps_plain),
-             (geo_umbrella, "umbrella_fan_features", umbrella_fan_features_plain),
+             (geo_umbrella, "umbrella_features_kernel", umbrella_plain),
              (blocks, "ball_group_feature", ball_group_feature_plain),
              (neighbors, "ball_group", ball_group_plain),
              (geo_umbrella, "knn", knn_plain), (blocks, "knn", knn_plain),
@@ -313,22 +404,39 @@ def plain_kernels():
             setattr(mod, name, fn)
 
 
+def reset_umbrella_counts():
+    from repsurf_torch.ops.kernels.umbrella import umbrella_features_kernel as umb
+
+    for counts in (umb.launches, umb.launches_by_style):
+        for key in counts:
+            counts[key] = 0
+
+
+def umbrella_counts():
+    """{'umbrella_tq': n, 'umbrella_full': n, 'umbrella_slab': n} and the
+    launches by style, since the last reset."""
+    from repsurf_torch.ops.kernels.umbrella import umbrella_features_kernel as umb
+
+    return ({f"umbrella_{k}": v for k, v in umb.launches.items()},
+            dict(umb.launches_by_style))
+
+
 def phase_slice(dev):
     from repsurf_torch.data.scanobjectnn import SyntheticClouds
     from repsurf_torch.data.transforms import fps_sample
     from repsurf_torch.ops.kernels.ball_group import ball_group_feature
     from repsurf_torch.ops.kernels.fps import fps
-    from repsurf_torch.ops.kernels.umbrella import umbrella_fan_features
     from repsurf_torch.train.train_cls import ClsConfig, build_model, eval_step, evaluate
 
     cfg = ClsConfig()
     model = build_model(cfg, generator=torch.Generator().manual_seed(cfg.seed)).to(dev).eval()
     n_params = sum(p.numel() for p in model.parameters())
     data = SyntheticClouds(n_samples=2 * BATCH, seed=1)
-    counters = (fps, umbrella_fan_features, ball_group_feature)
+    counters = (fps, ball_group_feature)
 
     for k in counters:
         k.launches = 0
+    reset_umbrella_counts()
     ball_group_feature.launches_by_channels.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -336,6 +444,7 @@ def phase_slice(dev):
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in counters}
+    launches["umbrella_tq"] = umbrella_counts()[0]["umbrella_tq"]
     by_c = dict(ball_group_feature.launches_by_channels)
     print(f"slice: repsurf_ssg_umb ({n_params} parameters), {len(data)} clouds, "
           f"batch {cfg.batch_size}, {RAW_POINTS}->{cfg.num_point}, {cfg.num_votes} votes: "
@@ -393,19 +502,28 @@ def check_scatter(name, replaces, sel, g, n, coff, backward_fn):
     if not (torch.equal(a, b) and torch.equal(a, direct)):
         raise AssertionError(f"{name}: two runs, or the Function and the kernel, differ")
     ref = ball_scatter_plain(sel, g.double(), n, coff)
-    bound = ball_scatter_plain(sel, g.abs().double(), n, coff)
+    contrib = ball_scatter_plain(sel, g.abs().double(), n, coff)
     err = (a.double() - ref).abs()
-    if (err > SCATTER_RTOL * bound).any():
+    if (err > SCATTER_RTOL * contrib).any():
         raise AssertionError(f"{name}: off the float64 scatter-add by more than "
                              f"{SCATTER_RTOL} of the contributions")
-    worst = float((err / bound.clamp(min=1e-30)).max())
+    worst = float((err / contrib.clamp(min=1e-30)).max())
     csr_ms = median_ms(lambda: selection_csr(sel, n))
     print(f"  {name}: bit-equal twice; worst |err| / sum|contributions| {worst:.3g} "
           f"(limit {SCATTER_RTOL}); of the kernel's time, building the point runs "
           f"{csr_ms:.4f} ms")
+    # the library call: index_add_ of the cotangent rows into a [B*N, C]
+    # buffer (its flat point keys made once, outside the timing)
+    bsz, c = sel.shape[0], g.shape[-1]
+    key = (sel.long() + torch.arange(bsz, device=sel.device)[:, None, None] * n).reshape(-1)
+    rows, acc = g.reshape(-1, c), torch.zeros((bsz * n, c), device=g.device)
     return _entry(name, BALL_SRC, replaces, float(err.max()),
                   lambda: ball_scatter(sel, g, n, coff),
-                  lambda: ball_scatter_plain(sel, g, n, coff))
+                  lambda: ball_scatter_plain(sel, g, n, coff),
+                  # one add per cotangent element; cotangent and selection
+                  # in, [B, N, coff + C] out
+                  (g.numel(), 4 * (g.numel() + sel.numel() + bsz * n * (coff + c))),
+                  library_fn=lambda: acc.index_add_(0, key, rows))
 
 
 def check_ball_rows(radius, nsample, xyz, new_xyz, tcat):
@@ -425,9 +543,12 @@ def check_ball_rows(radius, nsample, xyz, new_xyz, tcat):
         torch.cuda.synchronize()
         if not torch.equal(out, ref):
             raise AssertionError(f"ball_group[{shape}]: not bit-equal to the gather")
+        n = xyz.shape[1]
         fwd = _entry(f"ball_group[{shape}]", BALL_SRC, BALL_ROWS_TPU, 0.0,
                      lambda: ball_group_channels(radius, nsample, xyz, new_xyz, tcat),
-                     lambda: ball_group_channels_plain(radius, nsample, xyz, new_xyz, tcat))
+                     lambda: ball_group_channels_plain(radius, nsample, xyz, new_xyz, tcat),
+                     (KNN_FLOPS * b * m * n,
+                      4 * (3 * b * n + 3 * b * m + b * n * c + b * m * nsample * c)))
     fwd["channels"] = c
     leaf = tcat.detach().requires_grad_(True)
     g = torch.randn((b, m, nsample, c), generator=torch.Generator(xyz.device).manual_seed(2),
@@ -464,24 +585,25 @@ def check_feature_backward(radius, nsample, xyz, new_xyz, tcat):
     return entry
 
 
-def check_umbrella_grad(xyz):
+def check_umbrella_grad(xyz, style="cls"):
     """The umbrella Function's gradient (its backward re-runs the plain
     composition) against autograd through the plain composition."""
     from repsurf_torch.ops.kernels.umbrella import (
-        umbrella_fan_features,
         umbrella_fan_features_plain,
+        umbrella_features_kernel,
     )
 
+    args = dict(drop_self=style == "cls", rotate=style == "seg", style=style)
     x = xyz.detach().requires_grad_(True)
-    out = umbrella_fan_features(x, 9)
+    out = umbrella_features_kernel(x, 9, **args)
     g = torch.randn(out.shape, generator=torch.Generator(xyz.device).manual_seed(4),
                     device=xyz.device)
     got = torch.autograd.grad(out, x, g)[0]
-    want = torch.autograd.grad(umbrella_fan_features_plain(x, 9), x, g)[0]
+    want = torch.autograd.grad(umbrella_fan_features_plain(x, 9, **args), x, g)[0]
     torch.cuda.synchronize()
     rel = float((got - want).abs().max() / want.abs().max())
     print(f"  umbrella Function gradient vs the plain composition's "
-          f"[{xyz.shape[0]}x{xyz.shape[1]},k=9]: max |d| / max |grad| {rel:.3g} "
+          f"[{xyz.shape[0]}x{xyz.shape[1]},k=9,{style}]: max |d| / max |grad| {rel:.3g} "
           f"(limit {UMB_GRAD_RTOL})")
     if not torch.isfinite(got).all() or rel > UMB_GRAD_RTOL:
         raise AssertionError("umbrella gradient differs from the plain composition's")
@@ -530,7 +652,6 @@ def phase_cls_train(dev, profile=False):
     from repsurf_torch.nn.layers import Linear, MaskedBatchNorm
     from repsurf_torch.ops.kernels.ball_group import ball_group_feature
     from repsurf_torch.ops.kernels.fps import fps
-    from repsurf_torch.ops.kernels.umbrella import umbrella_fan_features
     from repsurf_torch.train.train_cls import (
         ClsConfig,
         build_model,
@@ -548,9 +669,10 @@ def phase_cls_train(dev, profile=False):
     opt = make_optimizer(model, cfg)
     data = SyntheticClouds(n_samples=8 * cfg.batch_size, seed=0)
 
-    counters = (fps, umbrella_fan_features, ball_group_feature)
+    counters = (fps, ball_group_feature)
     for k in counters:
         k.launches = 0
+    reset_umbrella_counts()
     ball_group_feature.launches_by_channels.clear()
     ball_group_feature.backward_launches_by_channels.clear()
     torch.cuda.reset_peak_memory_stats()
@@ -561,6 +683,7 @@ def phase_cls_train(dev, profile=False):
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in counters}
+    launches["umbrella_tq"] = umbrella_counts()[0]["umbrella_tq"]
     fwd_c = dict(ball_group_feature.launches_by_channels)
     bwd_c = dict(ball_group_feature.backward_launches_by_channels)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
@@ -699,12 +822,34 @@ def check_seg_fps(xyz, npoint, valid=None):
                              f"{int((idx != pidx).sum())} slots")
     if valid is None and not torch.equal(sam, index_points(xyz, idx)):
         raise AssertionError("fps: sampled xyz differ from the gather")
+    b, n = xyz.shape[0], xyz.shape[1]
+    nv = b * n if valid is None else int(valid.sum())  # the valid points are the work
     entry = _entry(
-        f"fps[{xyz.shape[0]}x{xyz.shape[1]}->{npoint}]", FPS_SRC, FPS_TPU, 0.0,
+        f"fps[{b}x{n}->{npoint}]", FPS_SRC, FPS_TPU, 0.0,
         lambda: fps(xyz, npoint, valid=valid), lambda: fps_plain(xyz, npoint, valid=valid),
-        timer=adaptive_ms,
+        (FPS_FLOPS * npoint * nv, 4 * (3 * nv + b * npoint)), timer=adaptive_ms,
     )
     return sam, entry
+
+
+def window_candidates(k, xyz, q, valid, resolved):
+    """The squared distances the window kernel evaluates in one call: for
+    each query, the points of the clipped 3 x 3 x 3 block of cells around
+    its own, plus a whole-cloud rescan for each re-solved query."""
+    from repsurf_torch.ops.kernels.knn_window import window_tables
+
+    t = window_tables(k, xyz, q, valid)
+    b, gxy, gz = xyz.shape[0], t["gxy"], t["gz"]
+    counts = torch.diff(t["starts"], dim=1).double().reshape(b, 1, gxy, gxy, gz)
+    block = torch.nn.functional.avg_pool3d(counts, 3, stride=1, padding=1,
+                                           count_include_pad=True)[:, 0] * 27
+    shape = torch.tensor([gxy - 1, gxy - 1, gz - 1], device=xyz.device)
+    cell = torch.floor((q - t["lo"][:, None]) / t["cs"][:, None]).long()
+    cell = torch.minimum(torch.clamp(cell, min=0), shape)
+    per_q = block[torch.arange(b, device=xyz.device)[:, None], cell[..., 0], cell[..., 1],
+                  cell[..., 2]]
+    nv = t["starts"][:, -1].double()
+    return int(torch.round(per_q.sum() + (resolved.double() * nv).sum()))
 
 
 def check_knn(kind, k, xyz, q, valid=None):
@@ -724,9 +869,13 @@ def check_knn(kind, k, xyz, q, valid=None):
     resolved = knn_window.resolved.tolist() if kind == "knn_window" else None
     if resolved is not None:
         print(f"  {name}: indices and distances equal; re-solved queries per sample {resolved}")
+    b, n, m = xyz.shape[0], xyz.shape[1], q.shape[1]
+    pairs = b * m * n if resolved is None else window_candidates(k, xyz, q, valid,
+                                                                 knn_window.resolved)
     entry = _entry(name, WINDOW_SRC if kind == "knn_window" else KNN_SRC,
                    WINDOW_TPU if kind == "knn_window" else KNN_TPU, err,
                    lambda: fn(k, xyz, q, valid=valid), lambda: knn_plain(k, xyz, q, valid=valid),
+                   (KNN_FLOPS * pairs, 4 * (3 * b * n + 3 * b * m + 2 * b * m * k)),
                    timer=adaptive_ms)
     if resolved is not None:
         entry["resolved_per_sample"] = resolved
@@ -896,6 +1045,195 @@ def phase_seg_slice(dev, profile=False):
     return launches
 
 
+def phase_umbrella(dev, xyz1):
+    """The three umbrella kernels against the plain composition at the cls
+    shape (both C) and at a small room's pass, full bit-equal to tq, the
+    seg-style gradient; then the kernel entry driven with impl full and
+    slab at both shapes (no model reaches them, as in the JAX package),
+    the path their launch counts are read from."""
+    from repsurf_torch.data.synthetic_scene import synthetic_room
+    from repsurf_torch.ops.kernels.umbrella import umbrella_features_kernel
+
+    print("umbrella kernels: tq, full and slab against the plain composition")
+    rng = np.random.RandomState(5)
+    seg = np.stack([synthetic_room(SEG_ROOM_POINTS, size=SEG_ROOM_SIZE, rng=rng)
+                    for _ in range(2)])
+    seg = torch.from_numpy(seg - seg.mean(axis=1, keepdims=True)).to(dev)
+    valid = torch.tensor([SEG_ROOM_POINTS, R2_POINTS], device=dev)
+    entries, outs = [], {}
+    with torch.inference_mode():
+        near = {"cls": umbrella_near_ties(xyz1, 9, "cls"),
+                "seg": umbrella_near_ties(seg, 9, "seg", valid)}
+        for style, xyz, v in (("cls", xyz1, None), ("seg", seg, valid)):
+            for impl in ("tq", "full", "slab"):
+                outs[style, impl], e = check_umbrella(impl, xyz, style, valid=v, near=near[style])
+                entries.append(e)
+            if style == "cls":
+                entries.append(check_umbrella("tq", xyz, style, return_dist=False,
+                                              near=near[style])[1])
+            same = torch.equal(outs[style, "full"], outs[style, "tq"])
+            print(f"  {style}: full bit-equal to tq: {same}")
+            if not same:
+                raise AssertionError(f"umbrella {style}: full differs from tq")
+        # other k (the 17-long list too) and samples with fewer valid points
+        # than k, at a small shape, untimed
+        small = torch.from_numpy(
+            (np.random.RandomState(6).rand(4, 768, 3) * 2 - 1).astype(np.float32)).to(dev)
+        few = torch.tensor([768, 700, 8, 5], device=dev)
+        for k, style, dist, impls in ((5, "cls", True, ("tq", "full", "slab")),
+                                      (13, "cls", True, ("tq", "full", "slab")),
+                                      (14, "cls", False, ("tq", "full", "slab")),
+                                      (12, "seg", True, ("tq", "full", "slab")),
+                                      (17, "cls", True, ("tq",)), (16, "seg", False, ("tq",))):
+            near_k = umbrella_near_ties(small, k, style, few)
+            got = [check_umbrella(impl, small, style, return_dist=dist, valid=few, near=near_k,
+                                  k=k, timed=False)[0] for impl in impls]
+            if len(got) > 1 and not torch.equal(got[0], got[1]):
+                raise AssertionError(f"umbrella k={k} {style}: full differs from tq")
+    check_umbrella_grad(seg, "seg")
+
+    reset_umbrella_counts()
+    with torch.inference_mode():
+        for impl in ("full", "slab"):
+            umbrella_features_kernel(xyz1, 9, drop_self=True, impl=impl)
+            umbrella_features_kernel(seg, 9, rotate=True, style="seg", valid=valid, impl=impl)
+    torch.cuda.synchronize()
+    counts = umbrella_counts()[0]
+    print(f"  umbrella_features_kernel driven with impl full and slab at both shapes: "
+          f"launches {counts}")
+    if counts["umbrella_full"] == 0 or counts["umbrella_slab"] == 0:
+        raise AssertionError("the full or slab umbrella kernel was not launched")
+    return entries, counts
+
+
+def labeled_room(n, size, rng):
+    """A synthetic room's coordinates, random RGB 0..255 and the geometric
+    labels of label_room."""
+    from repsurf_torch.data.synthetic_scene import label_room, synthetic_room
+
+    coord = synthetic_room(n, size=size, rng=rng)
+    return coord, rng.uniform(0.0, 255.0, (n, 3)).astype(np.float32), label_room(coord, size)
+
+
+def phase_scene(dev):
+    """Whole-scene inference of repsurf_umb_ssg at full width, seeded random
+    weights: predict_scene's device mode and the median filter on R1 (the
+    JAX test CLI's synthetic room) and R2 (a small room whose passes take
+    the seg-style umbrella kernel); device against host mode; one R2 batch
+    on the kernel path against the plain path; then the test CLI."""
+    from repsurf_torch.data.s3dis import pad_batch
+    from repsurf_torch.ops.kernels.fps import fps
+    from repsurf_torch.ops.kernels.knn import knn_brute
+    from repsurf_torch.ops.kernels.knn_window import knn_window
+    from repsurf_torch.train.eval_s3dis import (
+        chunk_scene,
+        median_filter,
+        padded_size,
+        scene_votes,
+        voxel_passes,
+    )
+    from repsurf_torch.train.train_seg import SegConfig, build_model
+
+    cfg = SegConfig()
+    model = build_model(cfg, generator=torch.Generator().manual_seed(cfg.seed)).to(dev).eval()
+
+    def forward_fn(batch):
+        with torch.no_grad():
+            return model(batch["coord"], batch["feat"], batch["valid"])
+
+    rng = np.random.RandomState(7)
+    rooms = {"R1": labeled_room(R1_POINTS, (8.0, 8.0, 3.0), rng),
+             "R2": labeled_room(R2_POINTS, SEG_ROOM_SIZE, rng)}
+    kw = dict(voxel_size=0.04, voxel_max=SEG_POINTS, batch_size=4, data_norm="mean", seed=1000)
+    counters = (fps, knn_window, knn_brute)
+    launches = {}
+    for name, (coord, rgb, _) in rooms.items():
+        chunks = chunk_scene(coord, rgb, voxel_passes(coord, kw["voxel_size"]),
+                             kw["voxel_max"], kw["data_norm"], seed=kw["seed"])
+        n_pad = padded_size(chunks[1], kw["voxel_max"])
+        for c in counters:
+            c.launches = 0
+        reset_umbrella_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        votes = scene_votes(forward_fn, coord, rgb, cfg.num_class, accumulate="device",
+                            device=dev, **kw)
+        pred = votes.argmax(dim=1).cpu().numpy()
+        t_pred = time.perf_counter() - t0
+        window_before = knn_window.launches
+        filtered = median_filter(coord, pred, 32, device=dev)
+        t_all = time.perf_counter() - t0
+        counts = {c.__name__: c.launches for c in counters}
+        by_impl, by_style = umbrella_counts()
+        counts.update(by_impl)
+        filter_window = knn_window.launches - window_before
+        print(f"scene {name}: {len(coord)} points, {len(chunks[0])} chunks padded to {n_pad}: "
+              f"predict_scene (device votes) {t_pred:.3f} s, with the median filter "
+              f"{t_all:.3f} s (host clock); launches {counts}, umbrella by style {by_style}, "
+              f"window kNN in the median filter {filter_window}")
+        launches[name] = dict(counts, umbrella_seg=by_style["seg"])
+        if not torch.isfinite(votes).all() or pred.shape != (len(coord),):
+            raise AssertionError(f"{name}: votes not finite or of the wrong shape")
+        if not ((filtered >= 0) & (filtered < cfg.num_class)).all():
+            raise AssertionError(f"{name}: median-filtered labels out of range")
+        if (by_style["seg"] > 0) != (name == "R2"):
+            raise AssertionError(f"{name}: seg-style umbrella kernel launches {by_style['seg']}")
+        if name == "R1" and (filter_window == 0 or min(counts[c.__name__] for c in counters) == 0):
+            raise AssertionError("R1: a kernel of the scene path was not launched")
+        host = scene_votes(forward_fn, coord, rgb, cfg.num_class, accumulate="host",
+                           device=dev, **kw)
+        top2 = np.sort(host, axis=1)[:, -2:]
+        tie = (top2[:, 1] - top2[:, 0]) < VOTE_TIE
+        differ = pred != host.argmax(1)
+        print(f"  {name}: device-mode labels against host-mode labels: {int(differ.sum())} "
+              f"differ, {int(tie.sum())} points with the top two vote averages within "
+              f"{VOTE_TIE}")
+        if (differ & ~tie).any():
+            raise AssertionError(f"{name}: device and host votes disagree away from ties")
+
+    # one R2 batch, kernel path against plain path
+    coord, rgb, _ = rooms["R2"]
+    idx_list, coord_list, feat_list = chunk_scene(coord, rgb, voxel_passes(coord, 0.04),
+                                                  kw["voxel_max"], "mean", seed=kw["seed"])
+    n_pad = padded_size(coord_list, kw["voxel_max"])
+    batch = pad_batch([(c, f, None) for c, f in zip(coord_list[:4], feat_list[:4])], n_pad)
+    batch = {k: torch.from_numpy(batch[k]).to(dev) for k in ("coord", "feat", "valid")}
+    logits = forward_fn(batch)
+    with plain_kernels():
+        plain = forward_fn(batch)
+    live = torch.arange(n_pad, device=dev)[None] < batch["valid"][:, None]
+    near = umbrella_near_ties(batch["coord"], 9, "seg", batch["valid"]) & live
+    err = float((logits - plain).abs()[live & ~near].max())
+    print(f"  R2 batch [{batch['coord'].shape[0]}x{n_pad}], kernel path vs plain path: max "
+          f"|d logit| {err:.3g} away from {int(near.sum())} azimuth near-tie points "
+          f"(limit {SEG_LOGIT_ATOL})")
+    if not torch.isfinite(logits[live]).all() or err > SEG_LOGIT_ATOL:
+        raise AssertionError("R2: kernel path and plain path disagree")
+    if int(near.sum()) > NEAR_TIE_SHARE * int(live.sum()):
+        raise AssertionError("R2: near-tie points exceed 0.1%")
+
+    here = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repsurf_torch.cli.test_s3dis", "--synthetic",
+             "--synthetic_rooms", "1", "--filter", "--device", "cuda", "--log_root", root],
+            cwd=here, capture_output=True, text=True, timeout=CLI_TIMEOUT)
+        secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"test_s3dis exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    result = [ln.split("] ", 1)[-1] for ln in proc.stdout.splitlines() if "scene " in ln
+              or "mIoU/mAcc/OA" in ln]
+    for ln in result:
+        print("  cli: " + ln)
+    print(f"cli: python -m repsurf_torch.cli.test_s3dis --synthetic --synthetic_rooms 1 "
+          f"--filter: {secs:.1f} s (process start and data included)")
+    if not any("mIoU/mAcc/OA" in ln for ln in result):
+        raise AssertionError("test_s3dis printed no mIoU/mAcc/OA line")
+    return launches
+
+
 def main():
     profile = "--profile" in sys.argv[1:]
     seconds = {}
@@ -908,14 +1246,16 @@ def main():
     entries, stages = phase_kernels(dev)
     seconds["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    umb_entries, umb_driven = phase_umbrella(dev, stages["xyz1"])
+    seconds["umbrella kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     launches, by_c = phase_slice(dev)
     seconds["slice"] = time.perf_counter() - t0
     for e in entries:
-        name = e["name"].split("[")[0]
-        if name == "ball_feature":
+        if e["name"].startswith("ball_feature"):
             e["launches"] = by_c.get(e.pop("channels"), 0)
         else:
-            e["launches"] = launches[{"fps": "fps", "umbrella": "umbrella_fan_features"}[name]]
+            e["launches"] = launches["fps"]
     t0 = time.perf_counter()
     train_entries, rows_fwd, rows_bwd = phase_train_kernels(stages)
     del stages
@@ -939,8 +1279,18 @@ def main():
     for e in seg_entries:
         e["launches"] = seg_launches[{"fps": "fps", "knn_window": "knn_window",
                                       "knn": "knn_brute"}[e["name"].split("[")[0]]]
+    t0 = time.perf_counter()
+    scene_launches = phase_scene(dev)
+    seconds["scene"] = time.perf_counter() - t0
+    for e in umb_entries:
+        impl, style = e.pop("impl"), e.pop("style")
+        if impl != "tq":
+            e["launches"] = umb_driven[f"umbrella_{impl}"]
+        else:  # tq: the cls eval slice, the seg style on R2's forwards
+            e["launches"] = (launches["umbrella_tq"] if style == "cls"
+                             else scene_launches["R2"]["umbrella_seg"])
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
-    print(json.dumps({"kernels": entries + train_entries + seg_entries}))
+    print(json.dumps({"kernels": entries + umb_entries + train_entries + seg_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,14 +1,18 @@
-"""S3DIS class weights and padded batching (repsurf_tpu/data/s3dis.py,
-``CLASS_WEIGHTS`` and ``pad_batch``), numpy only.
+"""S3DIS class weights, colour statistics and padded batching
+(repsurf_tpu/data/s3dis.py, ``CLASS_WEIGHTS``, ``S3DIS_RGB_MEAN`` /
+``S3DIS_RGB_STD`` and ``pad_batch``), numpy only.
 
 A copy, not an import: importing ``repsurf_tpu.data`` pulls in jax, and the
-machine with the card has none.  Room loading, voxelising and
-``data_prepare`` are not ported yet.
+machine with the card has none.  The training-time ``data_prepare`` is not
+ported yet; voxelising is ``data/voxelize.py``.
 """
 
 import numpy as np
 
 NUM_CLASS = 13
+
+S3DIS_RGB_MEAN = np.array([0.52146571, 0.50457911, 0.44939377], dtype=np.float32)
+S3DIS_RGB_STD = np.array([0.19645595, 0.19576158, 0.20104336], dtype=np.float32)
 
 # per-area class weights, segmentation/util/utils.py:159-189
 CLASS_WEIGHTS = {

@@ -1,5 +1,6 @@
 """Synthetic indoor-scene point clouds (repsurf_tpu/data/synthetic_scene.py,
-``synthetic_room`` and ``label_room``), numpy only.
+``synthetic_room``, ``label_room`` and the raw rooms of ``SyntheticRooms``),
+numpy only.
 
 A copy, not an import: importing ``repsurf_tpu.data`` pulls in jax
 (repsurf_tpu/data/__init__.py), and the machine with the card has none.
@@ -103,3 +104,32 @@ def label_room(coord, size, tol=0.06):
     label[z < tol] = 1  # floor
     label[z > sz - tol] = 0  # ceiling
     return label
+
+
+class SyntheticRooms:
+    """Labeled synthetic rooms, the no-dataset stand-in for S3DIS
+    (repsurf_tpu/data/synthetic_scene.py ``SyntheticRooms``), as far as the
+    whole-scene test CLI reads it: the room names and each raw room.  The
+    per-sample training pipeline (``data_prepare``) is not ported.
+    """
+
+    def __init__(self, split="train", n_rooms=12, raw_points=120000, seed=0):
+        self.raw_points = raw_points
+        # different universes for train and val
+        self.seed = seed + (0 if split == "train" else 10_000)
+        self.rooms = [f"synth_{split}_{i}" for i in range(n_rooms)]
+
+    def raw(self, i):
+        """Room ``i`` as [raw_points, 7] float32 (xyz, rgb 0..255, label),
+        the layout of a real room .npy file."""
+        rng = np.random.RandomState(self.seed + i)
+        size = (rng.uniform(6.0, 10.0), rng.uniform(6.0, 10.0), 3.0)
+        coord = synthetic_room(self.raw_points, size=size, rng=rng)
+        label = label_room(coord, size)
+        base = np.zeros((len(coord), 3), np.float32)
+        for cls, c in _SYNTH_BASE_RGB.items():
+            base[label == cls] = c
+        rgb = np.clip(base + rng.randn(len(coord), 3) * 25.0, 0.0, 255.0)
+        return np.concatenate(
+            [coord, rgb.astype(np.float32), label[:, None].astype(np.float32)], axis=1
+        )

@@ -44,9 +44,16 @@ def xyz2sphere(xyz, normalize=True):
     pole_theta = torch.where(u > 0, torch.zeros_like(u), torch.full_like(u, math.pi))
     theta = torch.where(at_pole, pole_theta, theta)
     theta = torch.where(zero, torch.zeros_like(theta), theta)  # 0 at rho == 0
-    xy_zero = (x == 0.0) & (y == 0.0)
-    phi = torch.atan2(y, torch.where(xy_zero, torch.ones_like(x), x))
     if normalize:
-        theta = ieee_div(theta, math.pi)
-        phi = ieee_div(phi, 2 * math.pi) + 0.5
-    return torch.cat([rho, theta, phi], dim=-1)
+        return torch.cat([rho, ieee_div(theta, math.pi), azimuth(x, y)], dim=-1)
+    return torch.cat([rho, theta, _atan2(y, x)], dim=-1)
+
+
+def _atan2(y, x):
+    """atan2 with atan2(0, 1) at the origin."""
+    return torch.atan2(y, torch.where((x == 0.0) & (y == 0.0), torch.ones_like(x), x))
+
+
+def azimuth(x, y):
+    """xyz2sphere's normalised phi, atan2(y, x) / (2 pi) + 0.5."""
+    return ieee_div(_atan2(y, x), 2 * math.pi) + 0.5

@@ -21,18 +21,24 @@ class RepSurfClassifier(nn.Module):
     inversion of the umbrella normals is an input, ``inv_sign`` [B] of +-1,
     or None for no inversion (the train step draws it); ``generator`` feeds
     the head's dropout in training.  Parameters are drawn from
-    ``generator`` at construction when one is given.
+    ``generator`` at construction when one is given.  ``umb_pool`` and
+    ``return_dist`` configure the umbrella constructor; the CD blocks need
+    the fan centres, so ``return_center=False`` raises, as in the JAX model.
     """
 
-    def __init__(self, num_class=15, group_size=8, return_polar=True,
+    def __init__(self, num_class=15, group_size=8, umb_pool="sum", return_dist=True,
+                 return_center=True, return_polar=True,
                  head_dropout=0.4, sa_npoint=(512, 128), sa_radius=(0.2, 0.4),
                  sa_nsample=(32, 64), sa_mlp=((64, 64, 128), (128, 128, 256)),
                  final_mlp=(256, 512, 1024), head_hidden=(512, 256),
                  generator=None):
         super().__init__()
+        if not return_center:
+            raise ValueError("CD blocks require return_center=True")
         gen = generator
         self.surface_constructor = UmbrellaSurfaceConstructor(
-            group_size + 1, REPSURF_CHANNEL, generator=gen
+            group_size + 1, REPSURF_CHANNEL, aggr_type=umb_pool, return_dist=return_dist,
+            generator=gen,
         )
         feat_in = REPSURF_CHANNEL  # normals; each stage appends its features
         for i, (npoint, radius, nsample, mlp) in enumerate(

@@ -49,27 +49,34 @@ class SharedMLP(nn.Module):
 
 class UmbrellaSurfaceConstructor(nn.Module):
     """Umbrella RepSurf features: the umbrella geometry of ``style``, an MLP
-    and a sum over the fans.
+    and a pool over the fans (``aggr_type`` 'sum', 'avg' or 'max').
 
     'cls': ``mlps`` = Linear (no bias), BN, ReLU, Linear, BN, ReLU, Linear.
     'seg': ``mlps`` = Linear, BN, ReLU, Linear.
+    The first Linear takes the geometry's 10 channels, or 9 without the
+    plane constant (``return_dist=False``); every layer gives ``in_channel``.
     """
 
-    def __init__(self, k, in_channel=10, style="cls", generator=None):
+    def __init__(self, k, in_channel=10, style="cls", aggr_type="sum", return_dist=True,
+                 generator=None):
         super().__init__()
+        if aggr_type not in ("sum", "avg", "max"):
+            raise ValueError(f"aggr_type must be sum, avg or max, got {aggr_type!r}")
         self.k = k
         self.style = style
-        c = in_channel
+        self.aggr_type = aggr_type
+        self.return_dist = return_dist
+        c, f = in_channel, 10 if return_dist else 9
         if style == "seg":
             self.mlps = nn.Sequential(
-                Linear(c, c, generator=generator),
+                Linear(f, c, generator=generator),
                 MaskedBatchNorm(c),
                 nn.ReLU(),
                 Linear(c, c, generator=generator),
             )
             return
         self.mlps = nn.Sequential(
-            Linear(c, c, bias=False, generator=generator),
+            Linear(f, c, bias=False, generator=generator),
             MaskedBatchNorm(c),
             nn.ReLU(),
             Linear(c, c, generator=generator),
@@ -82,12 +89,14 @@ class UmbrellaSurfaceConstructor(nn.Module):
         """center [B, N, 3] -> [B, N, channels].  ``inv_sign``: optional
         [B] +-1 per-sample normal inversion."""
         feat = umbrella_features(center, self.k, valid=valid, random_inv_sign=inv_sign,
-                                 style=self.style)
+                                 style=self.style, return_dist=self.return_dist)
         mask = _mask(valid, center.shape[1])
         x = feat
         for layer in self.mlps:
             x = layer(x, mask=mask) if isinstance(layer, MaskedBatchNorm) else layer(x)
-        return x.sum(dim=2)
+        if self.aggr_type == "max":
+            return x.amax(dim=2)
+        return x.mean(dim=2) if self.aggr_type == "avg" else x.sum(dim=2)
 
 
 class SurfaceAbstractionCD(SharedMLP):

@@ -1,5 +1,5 @@
 """Segmentation metrics (repsurf_tpu/nn/metrics.py): per-class histograms of
-intersection, union and target."""
+intersection, union and target, and the mIoU / mAcc / OA they give."""
 
 import torch
 
@@ -27,3 +27,10 @@ def intersection_and_union(pred, target, num_class, ignore_index=255):
     area_pred = hist(pred, keep)
     area_target = hist(target, keep)
     return inter, area_pred + area_target - inter, area_target
+
+
+def iou_from_counts(intersection, union, target):
+    """(mIoU, mAcc, allAcc) from accumulated count vectors."""
+    iou_class = intersection / (union + 1e-10)
+    acc_class = intersection / (target + 1e-10)
+    return iou_class.mean(), acc_class.mean(), intersection.sum() / (target.sum() + 1e-10)

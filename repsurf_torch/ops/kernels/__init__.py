@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for sm_90a, each beside its plain PyTorch
 version.
 
-Every wrapper (``fps.fps``, ``umbrella.umbrella_fan_features``,
+Every wrapper (``fps.fps``, ``umbrella.umbrella_features_kernel``,
 ``ball_group.ball_group_feature``, ``ball_group.ball_group_channels``,
 ``knn.knn_brute``, ``knn_window.knn_window``) runs the plain version for a
 tensor on the CPU and launches its kernel for a tensor on a CUDA device,

@@ -37,7 +37,12 @@ _SIGNATURES = {
     "repsurf_fps": (_I, [_P, _P, _I, _I, _I, _P, _P, _P]),
     "repsurf_fps_max_points": (_I, []),
     "repsurf_fps_block_points": (_I, []),
-    "repsurf_umbrella_cls": (_I, [_P, _P, _I, _I, _I, _P, _P, _P]),
+    "repsurf_umbrella_tq": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
+    "repsurf_umbrella_full": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
+    "repsurf_umbrella_slab": (
+        _I,
+        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    ),
     "repsurf_ball_feature": (
         _I,
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P, _P, _P, _P],

@@ -76,3 +76,12 @@ class BestCheckpointer:
 
     def exists(self):
         return os.path.exists(self.path)
+
+
+def restore_weights(model, path, map_location=None):
+    """The eval CLIs' partial restore (repsurf_tpu/train/checkpoint.py
+    ``restore(partial=True)``): the model's parameters and BN statistics
+    out of a full-resume payload, loaded into ``model`` in place.  The file
+    is memory-mapped, so the optimizer state it also holds is never read."""
+    payload = torch.load(path, map_location=map_location, weights_only=True, mmap=True)
+    model.load_state_dict(payload["model"])

@@ -59,22 +59,19 @@ class ClsConfig:
 
 def build_model(cfg, generator=None):
     """The configured model on the CPU, parameters drawn from ``generator``
-    (a CPU ``torch.Generator``; torch's global one when None).  The port's
-    classifier is the sum-pooled umbrella with its plane constant and fan
-    centres: other ``umb_pool`` / ``return_dist`` / ``return_center``
-    values, and ``init_type`` (which the JAX trainer carries but never
-    applies), raise."""
-    if cfg.umb_pool != "sum" or not cfg.return_dist or not cfg.return_center:
-        raise NotImplementedError(
-            "the port's classifier has umb_pool='sum', return_dist and return_center "
-            f"only; got {cfg.umb_pool!r}, {cfg.return_dist}, {cfg.return_center}"
-        )
+    (a CPU ``torch.Generator``; torch's global one when None).
+    ``return_center=False`` raises in the model, as in the JAX package;
+    ``init_type``, which the JAX trainer carries but never applies, raises
+    here."""
     if cfg.init_type is not None:
         raise NotImplementedError(f"init_type {cfg.init_type!r} is not ported")
     return get_model(
         cfg.model,
         num_class=cfg.num_class,
         group_size=cfg.group_size,
+        umb_pool=cfg.umb_pool,
+        return_dist=cfg.return_dist,
+        return_center=cfg.return_center,
         return_polar=cfg.return_polar,
         head_dropout=cfg.head_dropout,
         generator=generator,

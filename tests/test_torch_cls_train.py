@@ -27,7 +27,7 @@ from repsurf_torch.ops.kernels.ball_group import (
     ball_scatter_plain,
     selection_csr,
 )
-from repsurf_torch.ops.kernels.umbrella import umbrella_fan_features
+from repsurf_torch.ops.kernels.umbrella import umbrella_features_kernel
 from repsurf_torch.ops.neighbors import ball_group as t_ball_group
 from repsurf_torch.ops.neighbors import ball_query as t_ball_query
 from repsurf_torch.train import optim as topt
@@ -278,7 +278,7 @@ def test_umbrella_gradient_matches_jax_custom_vjp():
     w = np.random.RandomState(8).randn(2, 128, 8, 10).astype(np.float32)
     w[skip] = 0.0
     x = _t(xyz).requires_grad_(True)
-    (umbrella_fan_features(x, 9) * _t(w)).sum().backward()
+    (umbrella_features_kernel(x, 9, drop_self=True) * _t(w)).sum().backward()
     got = x.grad.numpy()
 
     def loss(p):
@@ -301,7 +301,7 @@ def test_fps_still_refuses_a_graph_and_the_wrappers_carry_gradients():
                                  [xyz.detach(), normal])
     feat.sum().backward()
     assert normal.grad is not None and normal.grad.sum() == 2 * 4 * 4 * 10
-    umbrella_fan_features(xyz, 9).sum().backward()
+    umbrella_features_kernel(xyz, 9, drop_self=True).sum().backward()
     assert xyz.grad is not None and torch.isfinite(xyz.grad).all()
 
 
@@ -375,8 +375,11 @@ def test_epoch_lr_and_optimizer_choice_match_jax():
     sgd = ttc.make_optimizer(tm, ttc.ClsConfig(optimizer="SGD", learning_rate=0.1))
     assert isinstance(sgd, torch.optim.SGD)
     assert sgd.defaults["momentum"] == 0.9 and sgd.defaults["weight_decay"] == 0.0
+    assert ttc.build_model(ttc.ClsConfig(umb_pool="max")).surface_constructor.aggr_type == "max"
     with pytest.raises(NotImplementedError):
-        ttc.build_model(ttc.ClsConfig(umb_pool="max"))
+        ttc.build_model(ttc.ClsConfig(init_type="kaiming"))
+    with pytest.raises(ValueError, match="return_center"):
+        ttc.build_model(ttc.ClsConfig(return_center=False))
 
 
 @pytest.mark.parametrize("weights_only", [False, True])

@@ -19,8 +19,8 @@ from repsurf_torch.ops.kernels.ball_group import (
 )
 from repsurf_torch.ops.kernels.fps import fps, fps_plain
 from repsurf_torch.ops.kernels.umbrella import (
-    umbrella_fan_features,
     umbrella_fan_features_plain,
+    umbrella_features_kernel,
 )
 from repsurf_torch.ops.neighbors import knn as t_knn
 from repsurf_torch.ops.gather import index_points as t_index_points
@@ -101,7 +101,7 @@ def _assert_close_except(a, b, skip, atol, max_share=1e-3):
 def test_umbrella_plain_matches_pallas_tq(valid):
     xyz = _cloud(2)
     a = umbrella_fan_features_plain(
-        _t(xyz), 9, valid=None if valid is None else _t(valid)
+        _t(xyz), 9, drop_self=True, valid=None if valid is None else _t(valid)
     ).numpy()
     b = np.asarray(umbrella_features_pallas(
         jnp.asarray(xyz), 9, drop_self=True, style="cls", valid=valid,
@@ -120,7 +120,7 @@ def test_umbrella_degenerate_fans_and_missing_neighbours():
     # a fan of duplicate points, and the JAX side would not repair it
     xyz = np.round(xyz * 16) / 16
     valid = np.array([128, 6], np.int32)  # 6 < k: missing kNN slots
-    a = umbrella_fan_features_plain(_t(xyz), 9, valid=_t(valid)).numpy()
+    a = umbrella_fan_features_plain(_t(xyz), 9, drop_self=True, valid=_t(valid)).numpy()
     b = np.asarray(umbrella_features_pallas(
         jnp.asarray(xyz), 9, drop_self=True, style="cls", valid=valid,
         impl="tq", interpret=True,
@@ -141,8 +141,8 @@ def test_umbrella_sign_outside_commutes_with_xla_route():
     skip = _near_ties(xyz, 9, None) | _knn_near_ties(xyz, 9, None)
     _assert_close_except(a, b, skip, UMB_ATOL, max_share=1e-2)
     np.testing.assert_array_equal(
-        umbrella_fan_features(_t(xyz), 9).numpy(),
-        umbrella_fan_features_plain(_t(xyz), 9).numpy(),
+        umbrella_features_kernel(_t(xyz), 9, drop_self=True).numpy(),
+        umbrella_fan_features_plain(_t(xyz), 9, drop_self=True).numpy(),
     )
 
 
@@ -186,7 +186,7 @@ def test_wrappers_refuse_a_graph_that_needs_backward():
         fps(xyz, 4)
     with torch.no_grad():
         assert fps(xyz, 4).shape == (B, 4)
-    feat = umbrella_fan_features(xyz, 9)
+    feat = umbrella_features_kernel(xyz, 9, drop_self=True)
     _, grouped = ball_group_feature(0.3, 4, xyz, xyz[:, :4], [xyz, feat.sum(dim=2)])
     grouped.sum().backward()
     assert xyz.grad is not None and torch.isfinite(xyz.grad).all()

@@ -68,8 +68,19 @@ def narrow_pair():
     return jm, variables, tm.eval()
 
 
-def test_narrow_forward_matches_jax(narrow_pair):
+@pytest.mark.parametrize("variant", [{}, {"umb_pool": "avg"}, {"umb_pool": "max"},
+                                     {"return_dist": False}],
+                         ids=["sum", "avg", "max", "no_dist"])
+def test_narrow_forward_matches_jax(narrow_pair, variant):
+    """Logits on transferred weights, for each umbrella pool and without
+    the plane constant."""
     jm, variables, tm = narrow_pair
+    if variant:
+        jm = j_get_model("repsurf.repsurf_ssg_umb", **NARROW, **variant)
+        variables = _random_variables(jm, 128, 1)
+        tm = t_get_model("repsurf.repsurf_ssg_umb", **NARROW, **variant)
+        tm.load_state_dict(state_dict_from_flax(variables), strict=True)
+        tm.eval()
     pts = (np.random.RandomState(2).rand(2, 128, 3) * 2 - 1).astype(np.float32)
     want = np.asarray(jm.apply(variables, jnp.asarray(pts), train=False))
     with torch.inference_mode():
@@ -172,7 +183,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert not bad, bad\n"
         "for name in ('train.train_cls', 'train.train_seg', 'train.optim', 'models.repsurf_seg',\n"
         "             'ops.kernels.knn', 'ops.kernels.knn_window', 'ops.sector', 'ops.interpolate',\n"
-        "             'nn.losses', 'nn.metrics', 'data.s3dis', 'data.synthetic_scene'):\n"
+        "             'nn.losses', 'nn.metrics', 'data.s3dis', 'data.synthetic_scene',\n"
+        "             'data.voxelize', 'train.eval_s3dis', 'cli.test_s3dis'):\n"
         "    assert 'repsurf_torch.' + name in sys.modules, name\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

@@ -11,7 +11,9 @@ Run from the root of a checkout.  Phases, each printing its lines:
                card, at the shapes of the classification eval path, with
                kernel and plain times (CUDA events, median of 20 runs), the
                bound and, where one PyTorch call computes the same
-               function, that call's time;
+               function, that call's time; each FPS line also its time a
+               round and the round floor of its launch shape (the same
+               rounds with the sweep removed);
   3b. umbrella kernels - tq, full and slab against the plain composition
                at the cls shape (C = 10, and C = 9 for tq) and at a small
                room's pass (the seg style), full bit-equal to tq, the slab's
@@ -24,12 +26,16 @@ Run from the root of a checkout.  Phases, each printing its lines:
                against plain path on one batch, times per batch;
   5. train kernels - at the shapes of both SA stages of the classifier:
                the ball-feature backward (the scatter kernel) twice, bit-equal,
-               and against a float64 scatter-add within 1e-6 of the sum of
-               each element's |contributions|; the row-grouping kernel's
+               its runs equal to selection_csr's, bit-equal to a float32 sum
+               in ascending slot order, and against a float64 scatter-add
+               within 1e-6 of the sum of each element's |contributions|,
+               with its and index_add_'s device times (torch.profiler); the row-grouping kernel's
                forward bit-equal to ball_query + index_points and its
                backward as above; the umbrella Function's gradient against
-               the plain composition's; then ops/neighbors.ball_group, the
-               row kernel's entry point, driven forward and backward;
+               the plain composition's; the runs and sums of a cloud too
+               large for shared memory (the global-memory variant); then
+               ops/neighbors.ball_group, the row kernel's entry point,
+               driven forward and backward;
   6. cls train slice - repsurf_ssg_umb at full width, seeded random
                weights, ClsConfig defaults, one epoch of 8 train steps
                (batch 64, 2048 -> 1024) through train_epoch and 8 more timed
@@ -44,8 +50,11 @@ Run from the root of a checkout.  Phases, each printing its lines:
                against their plain versions at every shape of the
                repsurf_umb_ssg step at 2 x 80,000 points (synthetic rooms
                and their FPS subsets), with the window kernel's re-solved
-               queries per sample; an adversarial window case held to brute
-               force; kernel and plain times (CUDA events, median);
+               queries per sample; FPS edge cases (duplicates across the
+               blocks of a cluster, valid ending inside a block's share,
+               npoint > valid, every one-block instantiation and every
+               cluster size 2..16) equal to fps_plain; an adversarial
+               window case held to brute force; kernel and plain times (CUDA events, median);
   9. seg slice - repsurf_umb_ssg at full width, seeded random weights,
                3 train steps and one eval step on bench.py's batch of two
                80,000-point rooms; launch counts, finite losses, kernel path
@@ -167,6 +176,26 @@ def median_ms(fn, reps=REPS, warm=3):
     return statistics.median(times)
 
 
+def device_ms(fn, reps=REPS):
+    """Device time of one call of fn: the kernels' self time under
+    torch.profiler over ``reps`` calls (after a warm-up), over reps.  Where
+    a call's host work outlasts its kernels, CUDA events around the call
+    measure the host; this measures the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace that caught no device time is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
+        if us > 0:
+            return us / 1e3 / reps
+    raise AssertionError("torch.profiler recorded no device time")
+
+
 def adaptive_ms(fn):
     """median_ms with one sizing run for warm-up: REPS runs, or as few as 3
     for a function slower than SLOW_MS / REPS."""
@@ -203,6 +232,40 @@ def _entry(name, source, replaces, err, kernel_fn, plain_fn, work, timer=median_
             "bound_by": bound_by, "library_ms": library_ms}
 
 
+def fps_round_floor_ms(xyz, npoint):
+    """The time of repsurf_fps_round_floor: FPS's launch shape for this
+    cloud (threads, cluster size) and npoint rounds with the sweep removed,
+    so only the reduction and the exchange: the round-latency floor."""
+    from repsurf_torch.ops.kernels import build
+    from repsurf_torch.ops.kernels.common import check_launch, ptr, stream
+
+    b, n = xyz.shape[0], xyz.shape[1]
+    lib = build.library()
+    idx = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
+    xyz = xyz.contiguous()
+
+    def probe():
+        check_launch(lib.repsurf_fps_round_floor(ptr(xyz), b, n, npoint, ptr(idx),
+                                                 stream(xyz.device)), "repsurf_fps_round_floor")
+
+    return median_ms(probe)
+
+
+def fps_rounds(entry, xyz, npoint):
+    """Add to an FPS entry its time a round, the round floor of its launch
+    shape, and the cluster size; print them."""
+    from repsurf_torch.ops.kernels import build
+
+    floor_ms = fps_round_floor_ms(xyz, npoint)
+    cs = build.library().repsurf_fps_cluster_size(xyz.shape[1])
+    entry.update(round_us=entry["ms"] * 1e3 / npoint, round_floor_us=floor_ms * 1e3 / npoint,
+                 cluster=cs)
+    print(f"    {entry['name']}: {'one block' if cs == 1 else f'{cs}-block cluster'}, "
+          f"{entry['round_us']:.3f} us a round; the round floor (no sweep) "
+          f"{entry['round_floor_us']:.3f} us")
+    return entry
+
+
 def check_fps(xyz, npoint):
     from repsurf_torch.ops.gather import index_points
     from repsurf_torch.ops.kernels.fps import fps, fps_plain
@@ -215,12 +278,64 @@ def check_fps(xyz, npoint):
     if not torch.equal(sam, index_points(xyz, idx)):
         raise AssertionError("fps: sampled xyz differ from the gather")
     b, n = xyz.shape[0], xyz.shape[1]
-    return idx, sam, _entry(
+    return idx, sam, fps_rounds(_entry(
         f"fps[{b}x{n}->{npoint}]",
         "repsurf_torch/csrc/fps.cu", "repsurf_tpu/ops/pallas/fps.py:36", 0.0,
         lambda: fps(xyz, npoint, return_xyz=True), lambda: fps_plain(xyz, npoint),
         (FPS_FLOPS * b * npoint * n, 4 * (3 * b * n + 4 * b * npoint)),
-    )
+    ), xyz, npoint)
+
+
+def check_fps_edges(dev):
+    """FPS cases that stress the kernel's exchange, each held equal to
+    fps_plain on the defined slots (the first min(npoint, valid)): every
+    point duplicated in another block of its cluster, so every round's
+    lowest-index tie crosses the exchange; valid ending inside a block's
+    share and inside the last block; N not a multiple of a block's points;
+    npoint > valid; every one-block instantiation (1..32 points a thread)
+    and every cluster size the wrapper picks, 2..16, the largest cloud
+    included."""
+    from repsurf_torch.ops.kernels import build
+    from repsurf_torch.ops.kernels.fps import fps, fps_plain
+
+    lib = build.library()
+    rng = np.random.RandomState(11)
+
+    def run(tag, n, npoint, valid=None, dup=False):
+        half = n // 2 if dup else n
+        base = rng.rand(2, half, 3).astype(np.float32)
+        pts = np.concatenate([base, base, base[:, :n - 2 * half]], axis=1) if dup else base
+        xyz = torch.from_numpy(pts).to(dev)
+        v = None if valid is None else torch.tensor(valid, device=dev)
+        idx = fps(xyz, npoint, valid=v)
+        want = fps_plain(xyz, npoint, valid=v)
+        torch.cuda.synchronize()
+        for i in range(2):
+            m = npoint if valid is None else min(npoint, valid[i])
+            if not torch.equal(idx[i, :m], want[i, :m]):
+                raise AssertionError(f"fps edge case {tag} [2x{n}->{npoint}, valid {valid}]: "
+                                     f"indices differ")
+        return lib.repsurf_fps_cluster_size(n)
+
+    seen = {}
+    for p in range(1, 33):  # one block, p points a thread
+        n = 256 * p - 5
+        seen[n] = run("one block", n, 96, valid=[n, n - 700], dup=True)
+    seen[3000] = run("npoint > valid", 3000, 200, valid=[50, 3000])
+    seen[20000] = run("valid mid share and in the last block", 20000, 256,
+                      valid=[7777, 19000], dup=True)
+    seen[20001] = run("npoint > valid, cluster", 20001, 300, valid=[150, 20001])
+    for cs in range(2, 17):
+        n = cs * 5120 - 77
+        seen[n] = run(f"cluster of {cs}", n, 64, valid=[n, n - 3001], dup=True)
+    n_max = lib.repsurf_fps_max_points()
+    seen[n_max] = run("the largest cloud", n_max, 48, dup=True)
+    sizes = sorted(set(seen.values()))
+    print(f"  fps edge cases: {len(seen)} clouds, duplicates across blocks, valid inside a "
+          f"block's share and the last block, npoint > valid, N up to {n_max}: equal to "
+          f"fps_plain on the defined slots; cluster sizes {sizes}")
+    if sizes != list(range(1, 17)):
+        raise AssertionError(f"fps edge cases reached cluster sizes {sizes}, not 1..16")
 
 
 def umbrella_near_ties(xyz, k, style, valid=None):
@@ -485,19 +600,52 @@ def phase_slice(dev):
     return launches, by_c
 
 
+def ordered_sum(sel, g, n, coff):
+    """The plain oracle of the scatter kernel on the card: selection_csr's
+    runs, then run position j = 0, 1, ... of every point added at once, a
+    sequential float32 sum in ascending slot order."""
+    from repsurf_torch.ops.kernels.ball_group import selection_csr
+
+    order, starts = selection_csr(sel, n)
+    order, starts = order.long(), starts.long()
+    c = g.shape[-1]
+    rows = g.reshape(-1, c)
+    length = starts[1:] - starts[:-1]
+    acc = torch.zeros((length.numel(), c), dtype=torch.float32, device=g.device)
+    for j in range(int(length.max()) if length.numel() else 0):
+        live = torch.nonzero(length > j)[:, 0]
+        acc[live] = acc[live] + rows[order[starts[live] + j]]
+    out = torch.cat([acc.new_zeros((acc.shape[0], coff)), acc], dim=-1)
+    return out.reshape(sel.shape[0], n, coff + c)
+
+
+def check_scatter_runs(name, sel, g, n, coff):
+    """The kernel's runs equal selection_csr's, and its sums the ordered
+    float32 oracle's, bit for bit."""
+    from repsurf_torch.ops.kernels.ball_group import ball_scatter, selection_csr
+
+    out, order, starts = ball_scatter(sel, g, n, coff, return_runs=True)
+    corder, cstarts = selection_csr(sel, n)
+    oracle = ordered_sum(sel, g, n, coff)
+    torch.cuda.synchronize()
+    if not (torch.equal(order, corder) and torch.equal(starts, cstarts)):
+        raise AssertionError(f"{name}: the kernel's runs differ from selection_csr's")
+    if not torch.equal(out, oracle):
+        raise AssertionError(f"{name}: not bit-equal to the ordered float32 sum")
+    return out
+
+
 def check_scatter(name, replaces, sel, g, n, coff, backward_fn):
     """The backward kernel at one shape: ``backward_fn`` (the gradient as
     the autograd Function returns it) twice, bit-equal, and equal to the
-    scatter kernel called on sel; within SCATTER_RTOL of the sum of the
-    |contributions| of each element of a float64 scatter-add."""
-    from repsurf_torch.ops.kernels.ball_group import (
-        ball_scatter,
-        ball_scatter_plain,
-        selection_csr,
-    )
+    scatter kernel called on sel; its runs equal to selection_csr's and
+    its sums bit-equal to the ordered float32 oracle; within SCATTER_RTOL
+    of the sum of the |contributions| of each element of a float64
+    scatter-add."""
+    from repsurf_torch.ops.kernels.ball_group import ball_scatter, ball_scatter_plain
 
     a, b = backward_fn(), backward_fn()
-    direct = ball_scatter(sel, g, n, coff)
+    direct = check_scatter_runs(name, sel, g, n, coff)
     torch.cuda.synchronize()
     if not (torch.equal(a, b) and torch.equal(a, direct)):
         raise AssertionError(f"{name}: two runs, or the Function and the kernel, differ")
@@ -508,22 +656,48 @@ def check_scatter(name, replaces, sel, g, n, coff, backward_fn):
         raise AssertionError(f"{name}: off the float64 scatter-add by more than "
                              f"{SCATTER_RTOL} of the contributions")
     worst = float((err / contrib.clamp(min=1e-30)).max())
-    csr_ms = median_ms(lambda: selection_csr(sel, n))
-    print(f"  {name}: bit-equal twice; worst |err| / sum|contributions| {worst:.3g} "
-          f"(limit {SCATTER_RTOL}); of the kernel's time, building the point runs "
-          f"{csr_ms:.4f} ms")
+    print(f"  {name}: bit-equal twice; runs equal to selection_csr's; bit-equal to the "
+          f"ordered float32 sum; worst |err| / sum|contributions| {worst:.3g} "
+          f"(limit {SCATTER_RTOL})")
     # the library call: index_add_ of the cotangent rows into a [B*N, C]
     # buffer (its flat point keys made once, outside the timing)
     bsz, c = sel.shape[0], g.shape[-1]
     key = (sel.long() + torch.arange(bsz, device=sel.device)[:, None, None] * n).reshape(-1)
     rows, acc = g.reshape(-1, c), torch.zeros((bsz * n, c), device=g.device)
-    return _entry(name, BALL_SRC, replaces, float(err.max()),
-                  lambda: ball_scatter(sel, g, n, coff),
-                  lambda: ball_scatter_plain(sel, g, n, coff),
-                  # one add per cotangent element; cotangent and selection
-                  # in, [B, N, coff + C] out
-                  (g.numel(), 4 * (g.numel() + sel.numel() + bsz * n * (coff + c))),
-                  library_fn=lambda: acc.index_add_(0, key, rows))
+    entry = _entry(name, BALL_SRC, replaces, float(err.max()),
+                   lambda: ball_scatter(sel, g, n, coff),
+                   lambda: ball_scatter_plain(sel, g, n, coff),
+                   # one add per cotangent element; cotangent and selection
+                   # in, [B, N, coff + C] out
+                   (g.numel(), 4 * (g.numel() + sel.numel() + bsz * n * (coff + c))),
+                   library_fn=lambda: acc.index_add_(0, key, rows))
+    entry["device_ms"] = device_ms(lambda: ball_scatter(sel, g, n, coff))
+    entry["library_device_ms"] = device_ms(lambda: acc.index_add_(0, key, rows))
+    print(f"    {name}: device time (profiler) kernel {entry['device_ms']:.4f} ms, "
+          f"index_add_ {entry['library_device_ms']:.4f} ms")
+    return entry
+
+
+def check_scatter_global(dev):
+    """A cloud whose runs do not fit in shared memory (the kernel's
+    global-scratch variant), and an N that is not a multiple of 32: short
+    balls padded with their first hit and empty balls on point 0."""
+    from repsurf_torch.ops.kernels import build
+
+    lib = build.library()
+    gen = torch.Generator(dev).manual_seed(5)
+    for b, n, m, s, c, coff in ((2, 20000, 5000, 32, 13, 0), (3, 1000, 300, 24, 7, 3)):
+        sel = torch.randint(0, n, (b, m, s), generator=gen, device=dev, dtype=torch.int32)
+        sel[:, ::10] = 0  # empty balls gather point 0
+        sel[:, 1::10, s // 3:] = sel[:, 1::10, :1]  # short balls, padded with the first hit
+        g = torch.randn((b, m, s, c), generator=gen, device=dev)
+        words = lib.repsurf_ball_scatter_scratch(b, n, m * s)
+        check_scatter_runs(f"ball_scatter[{b}x{n},M={m},S={s},C={c}]", sel, g, n, coff)
+        print(f"  ball_scatter [{b}x{n}, M={m}, S={s}, C={c}, coff={coff}]: runs equal to "
+              f"selection_csr's, bit-equal to the ordered float32 sum; "
+              f"{'global scratch of ' + str(words) + ' ints' if words else 'shared memory'}")
+        if (words > 0) != (n == 20000):
+            raise AssertionError("ball_scatter took the wrong workspace variant")
 
 
 def check_ball_rows(radius, nsample, xyz, new_xyz, tcat):
@@ -626,6 +800,7 @@ def phase_train_kernels(stages):
         tcat = torch.cat([xyz, *rest], dim=-1)
         entries.append(check_feature_backward(radius, nsample, xyz, q, tcat))
         entries += check_ball_rows(radius, nsample, xyz, q, tcat)
+    check_scatter_global(xyz.device)
     check_umbrella_grad(st["xyz1"])
 
     ball_group_channels.launches_by_channels.clear()
@@ -829,7 +1004,7 @@ def check_seg_fps(xyz, npoint, valid=None):
         lambda: fps(xyz, npoint, valid=valid), lambda: fps_plain(xyz, npoint, valid=valid),
         (FPS_FLOPS * npoint * nv, 4 * (3 * nv + b * npoint)), timer=adaptive_ms,
     )
-    return sam, entry
+    return sam, fps_rounds(entry, xyz, npoint)
 
 
 def window_candidates(k, xyz, q, valid, resolved):
@@ -937,6 +1112,7 @@ def phase_seg_kernels(dev):
         entries.append(e)
         xyz312, e = check_seg_fps(xyz1250, 312)
         entries.append(e)
+        check_fps_edges(dev)
         for kind, k, p, q in (
             ("knn_window", 9, room, room),  # umbrella
             ("knn_window", 32, room, xyz20),  # SA1

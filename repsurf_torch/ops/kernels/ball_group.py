@@ -28,6 +28,7 @@ on the CPU would differentiate ``pos`` as well.
 """
 
 import collections
+import functools
 
 import torch
 
@@ -93,10 +94,11 @@ def ball_scatter_plain(sel, g, n, coff=0):
 
 
 def selection_csr(sel, n):
-    """The backward kernel's inputs: the slots of sel [B, M, S] grouped by
-    point.  Returns (order [B*M*S] int32, the flat slot indices sorted by
-    b*N + sel, stably, so each point's slots stay in ascending (m, s)
-    order; starts [B*N + 1] int32, where each point's run begins)."""
+    """The plain version of the runs the backward kernel builds: the slots
+    of sel [B, M, S] grouped by point.  Returns (order [B*M*S] int32, the
+    flat slot indices sorted by b*N + sel, stably, so each point's slots
+    stay in ascending (m, s) order; starts [B*N + 1] int32, where each
+    point's run begins)."""
     b = sel.shape[0]
     key = (sel.to(torch.int64)
            + torch.arange(b, device=sel.device)[:, None, None] * n).reshape(-1)
@@ -106,22 +108,45 @@ def selection_csr(sel, n):
     return order.to(torch.int32).contiguous(), starts.to(torch.int32).contiguous()
 
 
-def ball_scatter(sel, g, n, coff=0):
-    """The backward kernel: sel [B, M, S] int32 and g [B, M, S, C] float32
-    on a CUDA device -> [B, N, coff + C], deterministic (see
-    csrc/ball_group.cu); the plain version for tensors on the CPU."""
+def ball_scatter(sel, g, n, coff=0, return_runs=False):
+    """The backward kernel: sel [B, M, S] int32 (values in [0, n)) and g
+    [B, M, S, C] float32 on a CUDA device -> [B, N, coff + C],
+    deterministic, in one launch that builds the point runs itself (see
+    csrc/ball_group.cu); the plain version for tensors on the CPU.
+
+    ``return_runs`` also returns the runs (order, starts) as
+    ``selection_csr`` gives them: written by the kernel on a CUDA device, a
+    check of its counting sort; ``selection_csr`` itself on the CPU."""
     if g.device.type == "cpu":
-        return ball_scatter_plain(sel, g, n, coff)
+        out = ball_scatter_plain(sel, g, n, coff)
+        return (out, *selection_csr(sel, n)) if return_runs else out
     b, m, s = sel.shape
     g = cuda_f32(g, "g", (b, m, s, None))
-    c = g.shape[-1]
-    order, starts = selection_csr(sel, n)
-    out = torch.empty((b, n, coff + c), dtype=torch.float32, device=g.device)
-    status = build.library().repsurf_ball_scatter(
-        ptr(g), ptr(order), ptr(starts), b * n, c, coff, ptr(out), stream(g.device)
+    if sel.dtype != torch.int32 or sel.device != g.device:
+        raise TypeError(f"sel: expected int32 on {g.device}, got {sel.dtype} on {sel.device}")
+    sel = sel.contiguous()
+    c, q, dev = g.shape[-1], m * s, g.device
+    lib = build.library()
+    words = _scratch_words(b, n, q)
+    scratch = torch.empty(words, dtype=torch.int32, device=dev) if words else None
+    out = torch.empty((b, n, coff + c), dtype=torch.float32, device=dev)
+    order = starts = None
+    if return_runs:
+        order = torch.empty(b * q, dtype=torch.int32, device=dev)
+        starts = torch.empty(b * n + 1, dtype=torch.int32, device=dev)
+    status = lib.repsurf_ball_scatter(
+        ptr(sel), ptr(g), b, n, q, c, coff, ptr(scratch), ptr(out), ptr(order), ptr(starts),
+        stream(dev),
     )
     check_launch(status, "repsurf_ball_scatter")
-    return out
+    return (out, order, starts) if return_runs else out
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_words(b, n, q):
+    """Global scratch ints the scatter kernel needs (0: its runs fit in
+    shared memory), by shape."""
+    return build.library().repsurf_ball_scatter_scratch(b, n, q)
 
 
 def _cuda_args(nsample, xyz, new_xyz, tcat, valid, min_c):

@@ -37,6 +37,8 @@ _SIGNATURES = {
     "repsurf_fps": (_I, [_P, _P, _I, _I, _I, _P, _P, _P]),
     "repsurf_fps_max_points": (_I, []),
     "repsurf_fps_block_points": (_I, []),
+    "repsurf_fps_cluster_size": (_I, [_I]),
+    "repsurf_fps_round_floor": (_I, [_P, _I, _I, _I, _P, _P]),
     "repsurf_umbrella_tq": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
     "repsurf_umbrella_full": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
     "repsurf_umbrella_slab": (
@@ -52,7 +54,8 @@ _SIGNATURES = {
         _I,
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P, _P, _P],
     ),
-    "repsurf_ball_scatter": (_I, [_P, _P, _P, _I, _I, _I, _P, _P]),
+    "repsurf_ball_scatter": (_I, [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+    "repsurf_ball_scatter_scratch": (ctypes.c_longlong, [_I, _I, _I]),
     "repsurf_knn": (_I, [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P]),
     "repsurf_knn_max_k": (_I, []),
     "repsurf_knn_window": (

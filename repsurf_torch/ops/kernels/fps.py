@@ -3,9 +3,11 @@ PyTorch version.
 
 Replaces repsurf_tpu/ops/pallas/fps.py:_fps_kernel.  ``fps`` runs the plain
 version for a tensor on the CPU and the kernel for a tensor on a CUDA
-device; there is no other choice between them.  The kernel holds clouds of
-up to 12,800 points in one block and larger ones, up to 102,400 points, in
-a cluster of up to 8 blocks (``csrc/fps.cu``).
+device; there is no other choice between them.  The kernel keeps each
+thread's points in registers; it holds clouds of up to 8,192 points in one
+block and larger ones, up to 131,072 points, in a cluster of up to 16
+blocks (``csrc/fps.cu``; ``repsurf_fps_cluster_size`` gives the size for a
+cloud).  A refused cluster launch raises with its CUDA error.
 
 Semantics: seed index 0, running min of squared distance over every point
 (selected points included), argmax with the lowest index on ties; points
@@ -73,7 +75,7 @@ def fps(xyz, npoint, valid=None, return_xyz=False):
     if not 0 < n <= lib.repsurf_fps_max_points():
         raise ValueError(
             f"fps kernel holds at most {lib.repsurf_fps_max_points()} points "
-            f"per cloud in a cluster's shared memory, got {n}"
+            f"per cloud in a cluster's registers, got {n}"
         )
     if npoint < 1:
         raise ValueError(f"npoint must be positive, got {npoint}")

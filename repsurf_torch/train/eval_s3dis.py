@@ -132,7 +132,7 @@ def predict_scene(forward_fn, coord, feat, num_class, **kwargs):
 
 
 def scene_votes(forward_fn, coord, feat, num_class, voxel_size=0.04, voxel_max=80000,
-                batch_size=4, data_norm="mean", seed=1000, accumulate="auto", device="cpu"):
+                batch_size=4, data_norm="mean", seed=1000, accumulate="auto", device="cuda"):
     """Vote-accumulate softmax predictions over all chunks of one scene.
 
     Args:
@@ -140,6 +140,8 @@ def scene_votes(forward_fn, coord, feat, num_class, voxel_size=0.04, voxel_max=8
         batch is a dict of ``coord`` [B, n_max, 3], ``feat`` [B, n_max, C]
         and ``valid`` [B] tensors on ``device``.
       coord / feat: [N, 3] raw scene arrays (feat in 0..255 RGB).
+      device: where the batches and votes live; the card unless the caller
+        asks for the CPU, as every entry point of the port does.
       accumulate: 'host' keeps the reference-shaped accumulation, float64
         numpy votes with one logits read-back per batch; 'device' keeps a
         float64 [N, C] vote buffer on ``device``, adds each batch's softmax
@@ -203,7 +205,7 @@ def scene_votes(forward_fn, coord, feat, num_class, voxel_size=0.04, voxel_max=8
     return pred[:n_scene] / torch.clamp(count[:n_scene], min=1.0)[:, None]
 
 
-def median_filter(coord, labels, group_size=32, device="cpu"):
+def median_filter(coord, labels, group_size=32, device="cuda"):
     """kNN median relabelling (segmentation/util/utils.py:235-245): each
     point takes the lower-middle label of its group_size nearest neighbours
     (torch.median's order statistic, not an average).  The kNN is the

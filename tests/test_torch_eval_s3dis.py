@@ -2,6 +2,8 @@
 nn/metrics.iou_from_counts, SyntheticRooms, the checkpoint's partial
 restore, cli/test_s3dis) against the JAX package, on the CPU."""
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -9,6 +11,7 @@ import pytest
 import torch
 
 from repsurf_torch.cli import test_s3dis as cli
+from repsurf_torch.cli import train_cls as train_cli
 from repsurf_torch.data.synthetic_scene import SyntheticRooms
 from repsurf_torch.data.voxelize import voxelize as t_voxelize
 from repsurf_torch.models import get_model as t_get_model
@@ -76,7 +79,8 @@ def test_host_mode_with_a_shared_forward_matches_jax():
 
     got = te.predict_scene(lambda b: torch.from_numpy(logits(b["coord"].numpy(),
                                                              b["feat"].numpy())),
-                           data[:, :3], data[:, 3:6], 13, voxel_max=700, accumulate="host")
+                           data[:, :3], data[:, 3:6], 13, voxel_max=700, accumulate="host",
+                           device="cpu")
     want = je.predict_scene(lambda b: logits(b["coord"], b["feat"]), data[:, :3],
                             data[:, 3:6], 13, voxel_max=700, accumulate="host")
     np.testing.assert_array_equal(got, want)
@@ -84,10 +88,12 @@ def test_host_mode_with_a_shared_forward_matches_jax():
     # in another order
     dev = te.scene_votes(lambda b: torch.from_numpy(logits(b["coord"].numpy(),
                                                           b["feat"].numpy())),
-                         data[:, :3], data[:, 3:6], 13, voxel_max=700, accumulate="device")
+                         data[:, :3], data[:, 3:6], 13, voxel_max=700, accumulate="device",
+                         device="cpu")
     host = te.scene_votes(lambda b: torch.from_numpy(logits(b["coord"].numpy(),
                                                            b["feat"].numpy())),
-                          data[:, :3], data[:, 3:6], 13, voxel_max=700, accumulate="host")
+                          data[:, :3], data[:, 3:6], 13, voxel_max=700, accumulate="host",
+                          device="cpu")
     np.testing.assert_allclose(dev.numpy(), host, rtol=1e-12, atol=0)
 
 
@@ -95,7 +101,7 @@ def test_median_filter_matches_jax():
     data = _room()
     coord = (data[:, :3] - data[:, :3].min(0)).astype(np.float32)
     labels = np.random.RandomState(2).randint(0, 13, len(coord)).astype(np.int64)
-    got = te.median_filter(coord, labels, 32)
+    got = te.median_filter(coord, labels, 32, device="cpu")
     want = je.median_filter(coord, labels, 32)
     assert got.dtype == labels.dtype
     np.testing.assert_array_equal(got, want)
@@ -118,7 +124,7 @@ def test_narrow_model_scene_labels_match_jax():
                             coord, feat, 13, accumulate="host", **kw)
     with torch.no_grad():
         votes = te.scene_votes(lambda b: tm(b["coord"], b["feat"], b["valid"]), coord, feat,
-                               13, accumulate="host", **kw)
+                               13, accumulate="host", device="cpu", **kw)
     top2 = np.sort(votes, axis=1)[:, -2:]
     near = (top2[:, 1] - top2[:, 0]) < NEAR_TIE
     assert near.mean() <= 1e-2, f"{near.sum()} near-tie points"
@@ -161,3 +167,13 @@ def test_cli_restores_weights_and_reports_metrics(tmp_path, capsys):
     assert sorted(p.name for p in visual.iterdir()) == ["synth_val_0_label.txt",
                                                        "synth_val_0_pred.txt"]
     capsys.readouterr()
+
+
+def test_entry_points_default_to_the_card():
+    """The scene-serving functions and both CLIs run on the card unless the
+    caller asks for the CPU."""
+    for fn in (te.scene_votes, te.median_filter):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    assert "device" not in inspect.signature(te.predict_scene).parameters  # forwarded
+    for mod in (cli, train_cli):
+        assert mod.parse_args([]).device == "cuda", mod.__name__

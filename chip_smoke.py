@@ -6,7 +6,9 @@ Run from the root of a checkout.  Phases, each printing its lines:
 
   1. card    - requires CUDA; prints the card's name and power limit as
                nvidia-smi gives them, the torch / CUDA versions, TF32 off;
-  2. build   - compiles repsurf_torch/csrc/*.cu with nvcc, prints the time;
+  2. build   - compiles repsurf_torch/csrc/*.cu with nvcc, prints the time
+               and, from ptxas's report, the registers, stack and spills
+               of the kNN and FPS kernels;
   3. kernels - each CUDA kernel against its plain PyTorch version on the
                card, at the shapes of the classification eval path, with
                kernel and plain times (CUDA events, median of 20 runs), the
@@ -50,11 +52,18 @@ Run from the root of a checkout.  Phases, each printing its lines:
                against their plain versions at every shape of the
                repsurf_umb_ssg step at 2 x 80,000 points (synthetic rooms
                and their FPS subsets), with the window kernel's re-solved
-               queries per sample; FPS edge cases (duplicates across the
-               blocks of a cluster, valid ending inside a block's share,
-               npoint > valid, every one-block instantiation and every
-               cluster size 2..16) equal to fps_plain; an adversarial
-               window case held to brute force; kernel and plain times (CUDA events, median);
+               queries per sample (at most RESOLVE_LIMIT, else the run
+               fails) and its call split into window_tables, the window
+               pass and the re-solve pass (CUDA events and torch.profiler
+               device time); brute kNN on every route (1, 8, 16 and 32
+               lanes a query) at small M; FPS on the stream route at
+               [1, 150,000] and [2, 400,000]; FPS edge cases (duplicates
+               across the blocks of a cluster, valid ending inside a
+               block's share, npoint > valid, every one-block
+               instantiation, every cluster size 2..16, the stream route)
+               equal to fps_plain; an adversarial window case held to
+               brute force; kernel and plain times (CUDA events, median)
+               and the kNN kernels' device times;
   9. seg slice - repsurf_umb_ssg at full width, seeded random weights,
                3 train steps and one eval step on bench.py's batch of two
                80,000-point rooms; launch counts, finite losses, kernel path
@@ -69,7 +78,11 @@ Run from the root of a checkout.  Phases, each printing its lines:
                umbrella style; device-mode labels against host-mode labels
                away from vote ties; one R2 batch on the kernel path against
                the plain path; python -m repsurf_torch.cli.test_s3dis
-               --synthetic with its mIoU/mAcc/OA line;
+               --synthetic with its mIoU/mAcc/OA line, then again with
+               --voxel_max 0 on a 400,000-point room whose voxel passes
+               exceed the FPS registers' 131,072 points (the stream
+               route), its pass sizes, its predictions read back in range
+               and its kernel launches;
   11. a JSON line of the kernels, then {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -79,6 +92,7 @@ result line.
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -100,6 +114,9 @@ POS_ATOL = 1e-6  # ball pos: xyz2sphere of the relative coordinates
 LOGP_ATOL = 1e-4  # log-probs, kernel path against plain path
 SEG_BATCH, SEG_POINTS = 2, 80000
 SEG_LOGIT_ATOL = 1e-4  # seg logits, kernel path against plain path
+RESOLVE_LIMIT = 64  # window re-solves a sample at the seg shapes (the JAX smoke run's limit)
+LARGE_ROOM_RAW = 400000  # the --voxel_max 0 room's raw points
+FPS_LARGE = ((1, 150000, 2048, (10.0, 10.0, 3.0)), (2, 400000, 1024, (16.0, 16.0, 3.0)))
 SLOW_MS = 2000.0  # a plain version this slow is timed fewer times
 FPS_SRC, FPS_TPU = "repsurf_torch/csrc/fps.cu", "repsurf_tpu/ops/pallas/fps.py:36"
 WINDOW_SRC = "repsurf_torch/csrc/knn_window.cu"
@@ -123,6 +140,15 @@ VOTE_TIE = 1e-6  # top-two vote-averaged probability gap, device against host mo
 # H100 SXM data sheet: float32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 KNN_FLOPS = 8  # one squared distance: 3 differences, 3 products, 2 sums
+PTXAS_KERNELS = (  # (label, a substring of the mangled name) for the build's report
+    ("knn_kernel<32>", "knn_kernelILi32EE"),
+    ("knn_split_kernel<32,32>", "knn_split_kernelILi32ELi32EE"),
+    ("knn_split_kernel<32,16>", "knn_split_kernelILi32ELi16EE"),
+    ("knn_split_kernel<256,32>", "knn_split_kernelILi256ELi32EE"),
+    ("knn_window_kernel<32>", "knn_window_kernelILi32EE"),
+    ("knn_resolve_kernel<32>", "knn_resolve_kernelILi32EE"),
+    ("fps_kernel<32,stream>", "fps_kernelILi32ELb1EE"),
+)
 FPS_FLOPS = 9  # a distance and the running minimum
 
 
@@ -156,6 +182,19 @@ def phase_build():
     build.library()
     print(f"build: {len(list(build.CSRC.glob('*.cu')))} sources -> {path.name} "
           f"in {seconds:.1f} s")
+    report = build.report_path()
+    if not report.exists():
+        print("  ptxas: no report (the library was built before reports were kept)")
+        return
+    found = build.resources(report.read_text())
+    parts = []
+    for label, key in PTXAS_KERNELS:
+        hits = [v for name, v in found.items() if key in name]
+        if len(hits) != 1:
+            raise AssertionError(f"ptxas report: {len(hits)} kernels match {key}")
+        regs, stack, st, ld = hits[0]
+        parts.append(f"{label} {regs} registers, {stack} B stack, {st}/{ld} B spill st/ld")
+    print("  ptxas: " + "; ".join(parts))
 
 
 def median_ms(fn, reps=REPS, warm=3):
@@ -176,11 +215,12 @@ def median_ms(fn, reps=REPS, warm=3):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=REPS):
-    """Device time of one call of fn: the kernels' self time under
-    torch.profiler over ``reps`` calls (after a warm-up), over reps.  Where
-    a call's host work outlasts its kernels, CUDA events around the call
-    measure the host; this measures the card."""
+def device_split(fn, groups, reps=REPS):
+    """Device time of one call of fn, split by kernel: {group: ms} for each
+    group whose pattern is a substring of a kernel's name, and "other" for
+    the rest (torch.profiler self times over ``reps`` calls after a
+    warm-up, over reps).  Where a call's host work outlasts its kernels,
+    CUDA events around the call measure the host; this measures the card."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -190,10 +230,18 @@ def device_ms(fn, reps=REPS):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
-        if us > 0:
-            return us / 1e3 / reps
+        out = dict.fromkeys([*groups, "other"], 0.0)
+        for e in prof.key_averages():
+            key = next((g for g, pattern in groups.items() if pattern in e.key), "other")
+            out[key] += getattr(e, "self_device_time_total", 0.0) / 1e3 / reps
+        if sum(out.values()) > 0:
+            return out
     raise AssertionError("torch.profiler recorded no device time")
+
+
+def device_ms(fn, reps=REPS):
+    """Device time of one call of fn (device_split, every kernel)."""
+    return device_split(fn, {}, reps)["other"]
 
 
 def adaptive_ms(fn):
@@ -293,8 +341,10 @@ def check_fps_edges(dev):
     lowest-index tie crosses the exchange; valid ending inside a block's
     share and inside the last block; N not a multiple of a block's points;
     npoint > valid; every one-block instantiation (1..32 points a thread)
-    and every cluster size the wrapper picks, 2..16, the largest cloud
-    included."""
+    and every cluster size the wrapper picks, 2..16, the largest cloud in
+    registers included; the stream route, with duplicates across its
+    register and streamed points and valid ending in its streamed
+    points."""
     from repsurf_torch.ops.kernels import build
     from repsurf_torch.ops.kernels.fps import fps, fps_plain
 
@@ -328,12 +378,15 @@ def check_fps_edges(dev):
     for cs in range(2, 17):
         n = cs * 5120 - 77
         seen[n] = run(f"cluster of {cs}", n, 64, valid=[n, n - 3001], dup=True)
-    n_max = lib.repsurf_fps_max_points()
-    seen[n_max] = run("the largest cloud", n_max, 48, dup=True)
+    n_max = lib.repsurf_fps_register_points()
+    seen[n_max] = run("the largest cloud in registers", n_max, 48, dup=True)
+    seen[n_max + 1] = run("stream", n_max + 1, 48, valid=[n_max + 1, n_max - 5000], dup=True)
+    seen[150001] = run("stream, valid in the streamed points", 150001, 64,
+                       valid=[150001, 149001], dup=True)
     sizes = sorted(set(seen.values()))
     print(f"  fps edge cases: {len(seen)} clouds, duplicates across blocks, valid inside a "
-          f"block's share and the last block, npoint > valid, N up to {n_max}: equal to "
-          f"fps_plain on the defined slots; cluster sizes {sizes}")
+          f"block's share and the last block, npoint > valid, N up to 150001 (the stream route "
+          f"above {n_max}): equal to fps_plain on the defined slots; cluster sizes {sizes}")
     if sizes != list(range(1, 17)):
         raise AssertionError(f"fps edge cases reached cluster sizes {sizes}, not 1..16")
 
@@ -1027,15 +1080,52 @@ def window_candidates(k, xyz, q, valid, resolved):
     return int(torch.round(per_q.sum() + (resolved.double() * nv).sum()))
 
 
-def check_knn(kind, k, xyz, q, valid=None):
+def window_split(name, k, xyz, q):
+    """The window call's three steps timed apart: window_tables, the window
+    pass and the re-solve pass, each by CUDA events (median), and the
+    call's device time by kernel.  Returns the dict it prints."""
+    from repsurf_torch.ops.kernels.knn_window import (
+        knn_window,
+        window_pass,
+        window_resolve,
+        window_tables,
+    )
+
+    t = window_tables(k, xyz, q)
+    outs = window_pass(k, q, t)
+    dev = device_split(lambda: knn_window(k, xyz, q),
+                       {"pass": "knn_window_kernel", "resolve": "knn_resolve_kernel"})
+    split = {"tables_ms": median_ms(lambda: window_tables(k, xyz, q)),
+             "pass_ms": median_ms(lambda: window_pass(k, q, t)),
+             "resolve_ms": median_ms(lambda: window_resolve(k, q, t, *outs)),
+             "tables_device_ms": dev["other"], "pass_device_ms": dev["pass"],
+             "resolve_device_ms": dev["resolve"]}
+    print(f"    {name}: window_tables {split['tables_ms']:.4f} ms, window pass "
+          f"{split['pass_ms']:.4f} ms, re-solve pass {split['resolve_ms']:.4f} ms (CUDA events); "
+          f"device time (profiler) window pass {dev['pass']:.4f} ms, re-solve pass "
+          f"{dev['resolve']:.4f} ms, the rest (tables) {dev['other']:.4f} ms")
+    return split
+
+
+def check_knn(kind, k, xyz, q, valid=None, lanes=None):
+    """One kNN kernel against knn_plain (indices and distances equal), with
+    its kernels-JSON entry; the window's re-solved queries per sample held
+    to RESOLVE_LIMIT and its call split into its steps; ``lanes`` forces a
+    brute route."""
+    from repsurf_torch.ops.kernels import knn as knn_mod
     from repsurf_torch.ops.kernels.knn import knn_brute, knn_plain
     from repsurf_torch.ops.kernels.knn_window import knn_window
 
-    fn = knn_window if kind == "knn_window" else knn_brute
+    b, n, m = xyz.shape[0], xyz.shape[1], q.shape[1]
+    if kind == "knn_window":
+        fn = knn_window
+    else:
+        lanes = lanes or knn_mod.brute_lanes(b * m, k, knn_mod._sm_count(xyz.device.index))
+        fn = functools.partial(knn_brute, lanes=lanes)
     idx, dist = fn(k, xyz, q, valid=valid)
     pidx, pdist = knn_plain(k, xyz, q, valid=valid)
     torch.cuda.synchronize()
-    name = f"{kind}[{xyz.shape[0]}x{xyz.shape[1]}->{q.shape[1]},k={k}]"
+    name = f"{kind}[{b}x{n}->{m},k={k}{',thread' if lanes == 1 else ''}]"
     if not torch.equal(idx, pidx):
         raise AssertionError(f"{name}: indices differ at {int((idx != pidx).sum())} slots")
     err = float((dist - pdist).abs().max())
@@ -1043,8 +1133,11 @@ def check_knn(kind, k, xyz, q, valid=None):
         raise AssertionError(f"{name}: distances differ by up to {err}")
     resolved = knn_window.resolved.tolist() if kind == "knn_window" else None
     if resolved is not None:
-        print(f"  {name}: indices and distances equal; re-solved queries per sample {resolved}")
-    b, n, m = xyz.shape[0], xyz.shape[1], q.shape[1]
+        print(f"  {name}: indices and distances equal; re-solved queries per sample {resolved} "
+              f"(limit {RESOLVE_LIMIT})")
+        if max(resolved) > RESOLVE_LIMIT:
+            raise AssertionError(f"{name}: the window guard re-solved {resolved} queries per "
+                                 f"sample, above {RESOLVE_LIMIT}")
     pairs = b * m * n if resolved is None else window_candidates(k, xyz, q, valid,
                                                                  knn_window.resolved)
     entry = _entry(name, WINDOW_SRC if kind == "knn_window" else KNN_SRC,
@@ -1052,9 +1145,114 @@ def check_knn(kind, k, xyz, q, valid=None):
                    lambda: fn(k, xyz, q, valid=valid), lambda: knn_plain(k, xyz, q, valid=valid),
                    (KNN_FLOPS * pairs, 4 * (3 * b * n + 3 * b * m + 2 * b * m * k)),
                    timer=adaptive_ms)
+    entry["device_ms"] = device_ms(lambda: fn(k, xyz, q, valid=valid))
     if resolved is not None:
         entry["resolved_per_sample"] = resolved
+        entry.update(window_split(name, k, xyz, q))
+    else:
+        entry.update(lanes=lanes, variant="thread" if lanes == 1 else "split",
+                     plain_device_ms=device_ms(lambda: knn_plain(k, xyz, q, valid=valid)))
+        print(f"    {name}: {'one thread' if lanes == 1 else f'{lanes} lanes'} a query; device "
+              f"time (profiler) {entry['device_ms']:.4f} ms, plain version "
+              f"{entry['plain_device_ms']:.4f} ms")
     return entry
+
+
+def check_resolve(name, k, xyz, q, resolved_per_sample):
+    """The re-solve kernel's own entry at one window shape: its time on
+    the window pass's list against knn_plain over the listed queries."""
+    from repsurf_torch.ops.kernels.knn import knn_plain
+    from repsurf_torch.ops.kernels.knn_window import window_pass, window_resolve, window_tables
+
+    t = window_tables(k, xyz, q)
+    outs = window_pass(k, q, t)
+    idx, dist, resolved, fails, _ = outs
+    window_resolve(k, q, t, *outs)
+    counts = resolved.tolist()
+    listed = [(s, fails[s, :c].long()) for s, c in enumerate(counts) if c]
+    torch.cuda.synchronize()
+    if counts != resolved_per_sample:
+        raise AssertionError(f"{name}: re-solved {counts}, the whole call {resolved_per_sample}")
+    for s, rows in listed:
+        pidx, pdist = knn_plain(k, xyz[s:s + 1], q[s:s + 1, rows])
+        if not (torch.equal(idx[s:s + 1, rows], pidx) and torch.equal(dist[s:s + 1, rows], pdist)):
+            raise AssertionError(f"{name}: a re-solved row differs from knn_plain")
+    nv, total = xyz.shape[1], sum(counts)
+    entry = _entry(name, WINDOW_SRC, WINDOW_TPU, 0.0,
+                   lambda: window_resolve(k, q, t, *outs),
+                   lambda: [knn_plain(k, xyz[s:s + 1], q[s:s + 1, rows]) for s, rows in listed],
+                   # the listed queries against every valid point; the cloud
+                   # in once, the listed rows out
+                   (KNN_FLOPS * total * nv, 4 * (4 * xyz.shape[0] * nv + total * (3 + 2 * k))))
+    entry["device_ms"] = device_ms(lambda: window_resolve(k, q, t, *outs))
+    entry["resolved_per_sample"] = counts
+    print(f"    {name}: re-solved rows equal to knn_plain; device time (profiler) "
+          f"{entry['device_ms']:.4f} ms")
+    return entry
+
+
+def check_brute_routes(dev, xyz):
+    """Brute kNN on every route (1, 8, 16 and 32 lanes a query) at small M,
+    each torch.equal to knn_plain: B = 2, M in {1, 17, 312}, k in {3, 32,
+    256}, over the seg stage's 1,250-point cloud and over a cloud of every
+    point twice (ties), each with every point valid and with valid =
+    [N, 200] (k > valid at k = 256)."""
+    from repsurf_torch.ops.kernels.knn import LANES, knn_brute, knn_plain
+
+    n = xyz.shape[1]
+    dup = torch.cat([xyz[:, :n // 2], xyz[:, :n // 2]], dim=1).contiguous()
+    cases = 0
+    for cloud_name, cloud in (("the 1,250-point cloud", xyz), ("every point twice", dup)):
+        for m in (1, 17, 312):
+            q = cloud[:, -m:].contiguous()
+            for k in (3, 32, 256):
+                for valid in (None, torch.tensor([n, 200], device=dev)):
+                    want = knn_plain(k, cloud, q, valid=valid)
+                    for lanes in LANES:
+                        got = knn_brute(k, cloud, q, valid=valid, lanes=lanes)
+                        torch.cuda.synchronize()
+                        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                            raise AssertionError(
+                                f"knn brute {lanes} lanes [2x{n}->{m},k={k}] on {cloud_name}, "
+                                f"valid {None if valid is None else valid.tolist()}: differs "
+                                f"from knn_plain")
+                        cases += 1
+    print(f"  knn brute at small M: {cases} calls (M in (1, 17, 312), k in (3, 32, 256), valid "
+          f"N and [N, 200], duplicates, lanes {LANES}) equal to knn_plain")
+
+
+def brute_route_sweep(shapes):
+    """Device time (torch.profiler) of brute kNN on every route at each
+    (name, k, xyz, q), beside the route brute_lanes picks: the measurement
+    behind its threshold."""
+    from repsurf_torch.ops.kernels import knn as knn_mod
+    from repsurf_torch.ops.kernels.knn import LANES, knn_brute
+
+    print("  knn brute routes, device time (profiler) by lanes a query:")
+    for name, k, xyz, q in shapes:
+        b, m = xyz.shape[0], q.shape[1]
+        times = {lanes: device_ms(lambda: knn_brute(k, xyz, q, lanes=lanes)) for lanes in LANES}
+        pick = knn_mod.brute_lanes(b * m, k, knn_mod._sm_count(xyz.device.index))
+        best = min(times, key=times.get)
+        print(f"    {name} [{b}x{xyz.shape[1]}->{m},k={k}], B*M {b * m}: "
+              + ", ".join(f"{lanes}: {ms:.4f} ms" for lanes, ms in times.items())
+              + f"; picked {pick} ({times[pick] / times[best]:.2f} x the best, {best})")
+
+
+def check_large_fps(dev):
+    """FPS on the stream route at [1, 150,000] -> 2,048 and [2, 400,000] ->
+    1,024 (synthetic rooms), equal to fps_plain, with its entries."""
+    from repsurf_torch.data.synthetic_scene import synthetic_room
+
+    rng = np.random.RandomState(3)
+    entries = []
+    for b, n, npoint, size in FPS_LARGE:
+        xyz = torch.from_numpy(np.stack([synthetic_room(n, size=size, rng=rng)
+                                         for _ in range(b)])).to(dev)
+        _, e = check_seg_fps(xyz, npoint)
+        e["fps_route"] = "stream"
+        entries.append(e)
+    return entries
 
 
 def check_adversarial_window(dev):
@@ -1084,7 +1282,8 @@ def check_adversarial_window(dev):
     torch.cuda.synchronize()
     ok = torch.equal(idx, pidx) and torch.equal(dist, pdist)
     print(f"  adversarial window case [2x20000->3000,k=16, valid {valid.tolist()}]: "
-          f"equal to brute force {ok}; re-solved per sample {knn_window.resolved.tolist()}")
+          f"equal to brute force {ok}; re-solved per sample {knn_window.resolved.tolist()} "
+          f"(exempt from the limit of {RESOLVE_LIMIT}: it forces re-solves)")
     if not ok:
         raise AssertionError("window kNN differs from brute force on the adversarial case")
 
@@ -1113,6 +1312,8 @@ def phase_seg_kernels(dev):
         xyz312, e = check_seg_fps(xyz1250, 312)
         entries.append(e)
         check_fps_edges(dev)
+        entries += check_large_fps(dev)
+        window = {}
         for kind, k, p, q in (
             ("knn_window", 9, room, room),  # umbrella
             ("knn_window", 32, room, xyz20),  # SA1
@@ -1125,6 +1326,24 @@ def phase_seg_kernels(dev):
             ("knn", 3, xyz5, xyz20),  # FP2
         ):
             entries.append(check_knn(kind, k, p, q))
+            if kind == "knn_window" and k == 32:
+                window[entries[-1]["name"]] = (k, p, q, entries[-1])
+        # the thread route beside the split one at SA4's shape
+        entries.append(check_knn("knn", 32, xyz1250, xyz312, lanes=1))
+        check_brute_routes(dev, xyz1250)
+        brute_route_sweep((("SA3", 32, xyz5, xyz1250), ("SA4", 32, xyz1250, xyz312),
+                           ("FP4", 3, xyz312, xyz1250), ("FP3", 3, xyz1250, xyz5),
+                           ("FP2", 3, xyz5, xyz20), ("20k self", 32, xyz20, xyz20),
+                           ("80k from 20k", 3, xyz20, room)))
+        for name, (k, p, q, e) in window.items():
+            entries.append(check_resolve(name.replace("knn_window", "knn_window_resolve"), k, p,
+                                         q, e["resolved_per_sample"]))
+        sa1 = next(e for e in entries if e["name"].startswith("knn_window[2x80000->20000"))
+        print(f"  SA1 window call: re-solve pass {sa1['resolve_device_ms']:.4f} ms of device "
+              f"time against the window pass's {sa1['pass_device_ms']:.4f} ms")
+        if not sa1["resolve_device_ms"] < sa1["pass_device_ms"]:
+            raise AssertionError("SA1: the re-solve pass took more device time than the window "
+                                 "pass")
         check_adversarial_window(dev)
     return entries
 
@@ -1172,6 +1391,8 @@ def phase_seg_slice(dev, profile=False):
     for c in counters:
         c.launches = 0
     fps.launches_by_route.clear()
+    knn_brute.launches_by_route.clear()
+    knn_window.resolve_launches = 0
     knn_window.resolved_total = 0
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
@@ -1187,14 +1408,19 @@ def phase_seg_slice(dev, profile=False):
     eval_loss = float(eval_loss)
     eval_ms = (time.perf_counter() - t0) * 1e3
     launches = {c.__name__: c.launches for c in counters}
+    launches["knn_window_resolve"] = knn_window.resolve_launches
     routes = dict(fps.launches_by_route)
+    brute_routes = dict(knn_brute.launches_by_route)
     resolved = int(knn_window.resolved_total)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     print(f"seg slice: repsurf_umb_ssg ({n_params} parameters), batch {b} x {n} points, "
-          f"3 train steps + 1 eval step; launches {launches}, fps by route {routes}; "
-          f"window re-solved queries in the slice {resolved}; peak memory {peak_gb:.2f} GiB")
-    if min(launches.values()) == 0 or routes.get("cluster", 0) == 0:
+          f"3 train steps + 1 eval step; launches {launches}, fps by route {routes}, knn_brute "
+          f"by route {brute_routes}; window re-solved queries in the slice {resolved}; peak "
+          f"memory {peak_gb:.2f} GiB")
+    if (min(launches.values()) == 0 or routes.get("cluster", 0) == 0
+            or brute_routes.get("split", 0) == 0):
         raise AssertionError("a kernel of the seg path was not launched in the slice")
+    launches.update({f"knn_brute_{r}": c for r, c in brute_routes.items()})
     print(f"  losses {losses}, eval loss {eval_loss}")
     if not all(math.isfinite(x) for x in [*losses, eval_loss]):
         raise AssertionError("a seg loss is not finite")
@@ -1407,6 +1633,57 @@ def phase_scene(dev):
           f"--filter: {secs:.1f} s (process start and data included)")
     if not any("mIoU/mAcc/OA" in ln for ln in result):
         raise AssertionError("test_s3dis printed no mIoU/mAcc/OA line")
+    launches["large room"] = large_room_cli(here)
+    return launches
+
+
+def large_room_cli(here):
+    """python -m repsurf_torch.cli.test_s3dis --voxel_max 0 on one
+    LARGE_ROOM_RAW-point synthetic room: whole voxel passes go to the model,
+    each over the FPS registers' 131,072 points, so FPS takes the stream
+    route.  Prints the pass sizes; the predictions (read back from the
+    --visual dump) are labels of the model's classes, one a raw point;
+    returns the CLI's kernel launches."""
+    from repsurf_torch.data.synthetic_scene import SyntheticRooms
+    from repsurf_torch.ops.kernels import build
+    from repsurf_torch.train.eval_s3dis import PALETTE, voxel_passes
+
+    room = SyntheticRooms("val", n_rooms=1, raw_points=LARGE_ROOM_RAW, seed=2000).raw(0)
+    sizes = [len(p) for p in voxel_passes(room[:, :3], 0.04)]
+    cap = build.library().repsurf_fps_register_points()
+    print(f"large room: {LARGE_ROOM_RAW} points, voxel passes of {sizes} points (the FPS "
+          f"registers hold {cap})")
+    if max(sizes) <= cap:
+        raise AssertionError("the large room's passes fit the FPS registers")
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repsurf_torch.cli.test_s3dis", "--synthetic",
+             "--synthetic_rooms", "1", "--synthetic_raw", str(LARGE_ROOM_RAW), "--voxel_max",
+             "0", "--visual", "--device", "cuda", "--log_root", root],
+            cwd=here, capture_output=True, text=True, timeout=CLI_TIMEOUT)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"test_s3dis --voxel_max 0 exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        colors = np.loadtxt(Path(root) / "S3DIS" / "default" / "visual" / "synth_val_0_pred.txt",
+                            usecols=(3, 4, 5), dtype=np.int64)
+    labels = (colors[:, None, :] == PALETTE[None]).all(-1)
+    if colors.shape[0] != LARGE_ROOM_RAW or not (labels.sum(1) >= 1).all():
+        raise AssertionError("test_s3dis --voxel_max 0: predictions missing or out of range")
+    found = np.unique(labels.argmax(1))
+    lines = [ln.split("] ", 1)[-1] for ln in proc.stdout.splitlines()]
+    launches = json.loads(next(ln for ln in lines if ln.startswith("kernel launches "))
+                          [len("kernel launches "):])
+    for ln in lines:
+        if "scene " in ln or "mIoU/mAcc/OA" in ln:
+            print("  cli: " + ln)
+    print(f"cli: python -m repsurf_torch.cli.test_s3dis --synthetic --synthetic_rooms 1 "
+          f"--synthetic_raw {LARGE_ROOM_RAW} --voxel_max 0 --visual: {secs:.1f} s (process start "
+          f"and data included); {colors.shape[0]} predictions, labels {found.tolist()} of "
+          f"{len(PALETTE)} classes; kernel launches {launches}")
+    if launches["fps"].get("stream", 0) == 0:
+        raise AssertionError("test_s3dis --voxel_max 0 did not take the FPS stream route")
     return launches
 
 
@@ -1452,12 +1729,19 @@ def main():
     t0 = time.perf_counter()
     seg_launches = phase_seg_slice(dev, profile=profile)
     seconds["seg slice"] = time.perf_counter() - t0
-    for e in seg_entries:
-        e["launches"] = seg_launches[{"fps": "fps", "knn_window": "knn_window",
-                                      "knn": "knn_brute"}[e["name"].split("[")[0]]]
     t0 = time.perf_counter()
     scene_launches = phase_scene(dev)
     seconds["scene"] = time.perf_counter() - t0
+    large = scene_launches["large room"]
+    for e in seg_entries:
+        kind = e["name"].split("[")[0]
+        if e.pop("fps_route", None) == "stream":  # only the large room's passes take it
+            e["launches"] = large["fps"].get("stream", 0)
+        elif kind == "knn":  # the seg slice and the large room, by route
+            e["launches"] = (seg_launches.get(f"knn_brute_{e['variant']}", 0)
+                             + large["knn_brute"].get(e["variant"], 0))
+        else:
+            e["launches"] = seg_launches[kind]
     for e in umb_entries:
         impl, style = e.pop("impl"), e.pop("style")
         if impl != "tq":

@@ -15,6 +15,7 @@ card and raises without one.
 """
 
 import argparse
+import json
 import os
 
 import numpy as np
@@ -120,7 +121,20 @@ def main(argv=None):
     for i in range(cfg.num_class):
         logger.info(f"class {i} ({LABEL2CLASS[i]}): IoU/Acc "
                     f"{float(iou_class[i]) * 100:.2f}/{float(acc_class[i]) * 100:.2f}")
+    logger.info(f"kernel launches {json.dumps(kernel_launches())}")
     return miou, macc, allacc
+
+
+def kernel_launches():
+    """The kNN and FPS kernels' launch counts in this process, by route
+    (all 0 on the CPU, where the plain versions run)."""
+    from ..ops.kernels.fps import fps
+    from ..ops.kernels.knn import knn_brute
+    from ..ops.kernels.knn_window import knn_window
+
+    return {"fps": dict(fps.launches_by_route), "knn_window": knn_window.launches,
+            "knn_window_resolve": knn_window.resolve_launches,
+            "knn_brute": dict(knn_brute.launches_by_route)}
 
 
 if __name__ == "__main__":

@@ -1,6 +1,8 @@
 // Masked furthest-point sampling: one thread block per sample for clouds
 // of up to 8,192 points, a thread-block cluster of up to 16 blocks per
-// sample for scene-size clouds (up to 131,072 points).
+// sample for scene-size clouds (up to 131,072 points in registers), and the
+// same 16-block cluster streaming the points beyond its registers from
+// device memory for any larger cloud.
 //
 // Replaces repsurf_tpu/ops/pallas/fps.py:_fps_kernel.
 //
@@ -36,6 +38,16 @@
 //     the barrier saves (measured).  Then lane j of every warp reads
 //     candidate j, key and coordinates at once.
 //
+// Beyond 131,072 points (the stream route, a whole voxel pass of a large
+// room) each thread keeps its first 32 points in registers as above and
+// the rest, points base + tid + k * T for k >= 32, in device memory: a
+// [B, N] float4 scratch the wrapper allocates holds each one's coordinates
+// and running distance, one 16-byte load a point a round.  At 400,000
+// points a sample the scratch is 6.4 MB, resident in the 50 MB L2, and a
+// round is bound by the latency of those loads, so a thread issues
+// kStreamBatch of them before it uses the first.  A winner among them
+// takes its coordinates from xyz, not from shared memory.
+//
 // Two slots by parity are enough: a block writes a parity's slots in a
 // peer again two rounds later, after it has received the peer's candidates
 // of the round between, which the peer's warps push only after reading
@@ -66,6 +78,7 @@ constexpr int kBlockPoints = kThreads * kMaxP;  // one block's largest cloud
 constexpr int kClusterP = 20;  // points a thread the cluster size aims at
 constexpr int kMaxCluster = 16;  // the H100's non-portable cluster size
 constexpr int kMaxCand = 32;  // candidates a round, one a lane
+constexpr int kStreamBatch = 8;  // stream route: scratch loads a thread keeps in flight
 constexpr unsigned kCandBytes = 24;  // a key and a float4 of coordinates
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -127,16 +140,18 @@ __device__ __forceinline__ void st_async(unsigned addr, float4 v, unsigned bar) 
 }
 
 // blockIdx.x / csize = sample; the block of cluster rank r holds points
-// [r * chunk, (r + 1) * chunk), chunk = blockDim.x * P.  csize 1 is a
+// [r * chunk, (r + 1) * chunk), chunk = blockDim.x * per (per = P unless
+// STREAM, which keeps points P..per-1 a thread in the scratch).  csize 1 is a
 // plain launch (no cluster, no exchange).  wpush: every warp pushes its
 // own key (csize * warps <= 32), else the block's key after the block
 // barrier.  probe != 0 skips the sweep (the distances stay as
 // initialised), so a round is only its reduction and exchange: the
 // round-latency floor of this launch shape.
-template <int P>
+template <int P, bool STREAM>
 __global__ void __launch_bounds__(kThreads, 1)
     fps_kernel(const float* __restrict__ xyz, const int* __restrict__ valid, int n,
-               int npoint, int csize, int wpush, int probe, int* __restrict__ idx_out,
+               int npoint, int csize, int wpush, int probe, int per,
+               float4* __restrict__ scratch, int* __restrict__ idx_out,
                float* __restrict__ xyz_out) {
   extern __shared__ float4 s_xyz[];
   __shared__ unsigned long long wkey[2][kWarps];
@@ -153,7 +168,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int b = blockIdx.x / csize;
   const int nv = valid == nullptr ? n : valid[b];
   const float* src = xyz + (size_t)b * n * 3;
-  const int base = rank * T * P;
+  const int base = rank * T * (STREAM ? per : P);
   const int ncand = wpush ? csize * nwarps : csize;
   const int slot = wpush ? rank * nwarps + warp : rank;
 
@@ -168,6 +183,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     pz[k] = real ? src[g * 3 + 2] : 0.0f;
     pd[k] = g < nv ? 1e10f : (real ? -1.0f : -FLT_MAX);
     s_xyz[l] = make_float4(px[k], py[k], pz[k], 0.0f);
+  }
+  // the stream route: points base + tid + k * T for P <= k < kend lie below n
+  const int kend = STREAM ? min(per, (n - base - tid + T - 1) / T) : 0;
+  float4* sp = STREAM && !probe ? scratch + (size_t)b * n : nullptr;
+  if (STREAM && !probe) {
+    for (int k = P; k < kend; ++k) {
+      const int g = base + tid + k * T;
+      sp[g] = make_float4(src[g * 3 + 0], src[g * 3 + 1], src[g * 3 + 2],
+                          g < nv ? 1e10f : -1.0f);
+    }
   }
   int far = 0;
   float cx = src[0], cy = src[1], cz = src[2];
@@ -209,6 +234,26 @@ __global__ void __launch_bounds__(kThreads, 1)
           bk = k;
         }
       }
+      if constexpr (STREAM) {  // the points beyond the registers, indices above theirs
+        for (int k0 = P; k0 < kend; k0 += kStreamBatch) {
+          float4 c[kStreamBatch];
+#pragma unroll
+          for (int u = 0; u < kStreamBatch; ++u)
+            c[u] = k0 + u < kend ? sp[base + tid + (k0 + u) * T] : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int u = 0; u < kStreamBatch; ++u) {
+            if (k0 + u < kend) {
+              const float dx = c[u].x - cx, dy = c[u].y - cy, dz = c[u].z - cz;
+              const float d = fminf(c[u].w, dx * dx + dy * dy + dz * dz);
+              sp[base + tid + (k0 + u) * T].w = d;
+              if (d > best) {
+                best = d;
+                bk = k0 + u;
+              }
+            }
+          }
+        }
+      }
     } else {
       best = pd[0];
     }
@@ -228,7 +273,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       continue;
     }
     if (wpush || warp == 0) {
-      const float4 c = s_xyz[win - base];
+      const int l = win - base;
+      const float4 c = !STREAM || l < T * P ? s_xyz[l]
+                                            : make_float4(src[win * 3 + 0], src[win * 3 + 1],
+                                                          src[win * 3 + 2], 0.0f);
       if (lane < csize) {
         const unsigned bar = peer_addr(smem_addr(&mbar[par]), lane);
         st_async(peer_addr(smem_addr(&ckey[par][slot]), lane), key, bar);
@@ -249,41 +297,48 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (csize > 1) cg::this_cluster().sync();
 }
 
-// The launch shape for a cloud of n points: points a thread, threads a
-// block, blocks a cluster (1: a plain launch), and whether every warp
-// pushes its own key.
+// The launch shape for a cloud of n points: points a thread in registers,
+// threads a block, blocks a cluster (1: a plain launch), whether every warp
+// pushes its own key, and points a thread in all (above p: the stream
+// route).
 struct Shape {
-  int p, threads, csize, wpush;
+  int p, threads, csize, wpush, per;
 };
+
+constexpr int kRegisterPoints = kMaxCluster * kThreads * kMaxP;
 
 Shape shape_for(int n) {
   if (n <= kBlockPoints) {
     const int p = (n + kThreads - 1) / kThreads;
     const int t = ((n + p - 1) / p + 31) / 32 * 32;
-    return {p, t, 1, 0};
+    return {p, t, 1, 0, p};
+  }
+  if (n > kRegisterPoints) {
+    const int per = (n + kMaxCluster * kThreads - 1) / (kMaxCluster * kThreads);
+    return {kMaxP, kThreads, kMaxCluster, 0, per};
   }
   int cs = (n + kThreads * kClusterP - 1) / (kThreads * kClusterP);
   cs = cs < kMaxCluster ? cs : kMaxCluster;
   const int p = (n + cs * kThreads - 1) / (cs * kThreads);
   cs = (n + p * kThreads - 1) / (p * kThreads);  // no block without points
-  return {p, kThreads, cs, cs * kWarps <= kMaxCand ? 1 : 0};
+  return {p, kThreads, cs, cs * kWarps <= kMaxCand ? 1 : 0, p};
 }
 
-template <int P>
+template <int P, bool STREAM>
 cudaError_t launch(const Shape& s, const float* xyz, const int* valid, int batch, int n,
-                   int npoint, int probe, int* idx_out, float* xyz_out,
+                   int npoint, int probe, float4* scratch, int* idx_out, float* xyz_out,
                    cudaStream_t stream) {
   const size_t smem = sizeof(float4) * (size_t)s.threads * P;
   cudaError_t err = cudaFuncSetAttribute(
-      fps_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fps_kernel<P, STREAM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   if (s.csize == 1) {
-    fps_kernel<P><<<batch, s.threads, smem, stream>>>(xyz, valid, n, npoint, 1, 0, probe,
-                                                      idx_out, xyz_out);
+    fps_kernel<P, STREAM><<<batch, s.threads, smem, stream>>>(
+        xyz, valid, n, npoint, 1, 0, probe, s.per, scratch, idx_out, xyz_out);
     return cudaGetLastError();
   }
   if (s.csize > 8) {
-    err = cudaFuncSetAttribute(fps_kernel<P>,
+    err = cudaFuncSetAttribute(fps_kernel<P, STREAM>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
   }
@@ -299,29 +354,37 @@ cudaError_t launch(const Shape& s, const float* xyz, const int* valid, int batch
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, fps_kernel<P>, xyz, valid, n, npoint, s.csize, s.wpush,
-                           probe, idx_out, xyz_out);
+  err = cudaLaunchKernelEx(&cfg, fps_kernel<P, STREAM>, xyz, valid, n, npoint, s.csize,
+                           s.wpush, probe, s.per, scratch, idx_out, xyz_out);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <int P = 1>
 cudaError_t dispatch(const Shape& s, const float* xyz, const int* valid, int batch, int n,
-                     int npoint, int probe, int* idx_out, float* xyz_out,
+                     int npoint, int probe, float4* scratch, int* idx_out, float* xyz_out,
                      cudaStream_t stream) {
   if constexpr (P > kMaxP) {
     return cudaErrorInvalidValue;
   } else {
-    if (s.p == P) {
-      return launch<P>(s, xyz, valid, batch, n, npoint, probe, idx_out, xyz_out, stream);
+    if (s.per > kMaxP) {
+      return launch<kMaxP, true>(s, xyz, valid, batch, n, npoint, probe, scratch, idx_out,
+                                 xyz_out, stream);
     }
-    return dispatch<P + 1>(s, xyz, valid, batch, n, npoint, probe, idx_out, xyz_out, stream);
+    if (s.p == P) {
+      return launch<P, false>(s, xyz, valid, batch, n, npoint, probe, scratch, idx_out, xyz_out,
+                              stream);
+    }
+    return dispatch<P + 1>(s, xyz, valid, batch, n, npoint, probe, scratch, idx_out, xyz_out,
+                           stream);
   }
 }
 
 }  // namespace
 
-extern "C" int repsurf_fps_max_points() { return kMaxCluster * kThreads * kMaxP; }
+// The largest cloud whose points all sit in registers; a larger one takes
+// the stream route, with a [B, N, 4] float32 scratch.
+extern "C" int repsurf_fps_register_points() { return kRegisterPoints; }
 
 extern "C" int repsurf_fps_block_points() { return kBlockPoints; }
 
@@ -329,25 +392,27 @@ extern "C" int repsurf_fps_block_points() { return kBlockPoints; }
 extern "C" int repsurf_fps_cluster_size(int n) { return shape_for(n).csize; }
 
 // xyz [B, N, 3] f32, valid [B] i32 or null, idx_out [B, npoint] i32,
-// xyz_out [B, npoint, 3] f32 or null.  N <= 8,192 runs one block per
+// xyz_out [B, npoint, 3] f32 or null; scratch [B, N, 4] f32 (16-byte
+// aligned) for N above repsurf_fps_register_points(), else null.  N <= 8,192 runs one block per
 // sample, a larger N a cluster of up to 16 blocks per sample (see
 // shape_for).  Returns the CUDA error of the launch (a refused cluster
-// launch included), or cudaErrorInvalidValue for N beyond
-// repsurf_fps_max_points().
+// launch included), or cudaErrorInvalidValue for N < 1 or a missing
+// scratch.
 extern "C" int repsurf_fps(const float* xyz, const int* valid, int batch, int n,
-                           int npoint, int* idx_out, float* xyz_out,
+                           int npoint, float* scratch, int* idx_out, float* xyz_out,
                            cudaStream_t stream) {
-  if (n < 1 || n > repsurf_fps_max_points()) return (int)cudaErrorInvalidValue;
-  return (int)dispatch(shape_for(n), xyz, valid, batch, n, npoint, 0, idx_out, xyz_out,
-                       stream);
+  if (n < 1 || (n > kRegisterPoints && scratch == nullptr)) return (int)cudaErrorInvalidValue;
+  return (int)dispatch(shape_for(n), xyz, valid, batch, n, npoint, 0,
+                       reinterpret_cast<float4*>(scratch), idx_out, xyz_out, stream);
 }
 
 // A measurement, not a sampler: the same launch shape and rounds as
 // repsurf_fps with the sweep removed (idx_out gets a constant index), so
-// its time over npoint is the round-latency floor of that shape.
+// its time over npoint is the round-latency floor of that shape.  The
+// stream route's shape too: without the sweep it touches no scratch.
 extern "C" int repsurf_fps_round_floor(const float* xyz, int batch, int n, int npoint,
                                        int* idx_out, cudaStream_t stream) {
-  if (n < 1 || n > repsurf_fps_max_points()) return (int)cudaErrorInvalidValue;
-  return (int)dispatch(shape_for(n), xyz, nullptr, batch, n, npoint, 1, idx_out, nullptr,
-                       stream);
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  return (int)dispatch(shape_for(n), xyz, nullptr, batch, n, npoint, 1, nullptr, idx_out,
+                       nullptr, stream);
 }

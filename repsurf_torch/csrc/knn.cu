@@ -1,4 +1,5 @@
-// Exact brute-force k-nearest neighbours, one thread per query.
+// Exact brute-force k-nearest neighbours: one thread per query, or a group
+// of L lanes per query when there are too few queries to fill the card.
 //
 // Replaces repsurf_tpu/ops/pallas/knn.py:_knn_kernel (entry knn_pallas).
 //
@@ -10,7 +11,16 @@
 // are tiled through shared memory (every thread of a block reads the same
 // tile, so the cloud leaves device memory once per block of queries) and
 // each thread keeps its k best in registers (knn_topk.cuh), so nothing but
-// the [B, M, k] results is written.  The seg stages call it at N <= 5,000.
+// the [B, M, k] results is written.
+//
+// Two routes, chosen by the caller from the shape alone (ops/kernels/knn.py):
+//   * knn_kernel: one thread per query.  At the seg stages' small clouds
+//     (1,250 -> 312 points: 624 queries, 5 blocks on 132 SMs) most of the
+//     card idles while each thread scans the whole cloud alone;
+//   * knn_split_kernel<K, L>: an aligned group of L = 8, 16 or 32 lanes per
+//     query, each lane over every L-th candidate of the tile with its own
+//     list, the group's lists merged in k shuffle rounds (merge_lanes).  L
+//     times the threads, 1/L of the serial scan each.
 //
 // Semantics (identical to the plain version in ops/kernels/knn.py): squared
 // distances from direct differences; points at or beyond valid[b] sit at
@@ -24,7 +34,19 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kSplitThreads = 256;
 constexpr int kTile = 512;
+
+// the block's share of the reference points into shared memory
+__device__ __forceinline__ void load_tile(const float* __restrict__ src, int base, int n,
+                                          float* tx, float* ty, float* tz) {
+  for (int t = threadIdx.x; t < kTile && base + t < n; t += blockDim.x) {
+    const int j = base + t;
+    tx[t] = src[j * 3 + 0];
+    ty[t] = src[j * 3 + 1];
+    tz[t] = src[j * 3 + 2];
+  }
+}
 
 template <int K>
 __global__ void __launch_bounds__(kThreads)
@@ -44,12 +66,7 @@ __global__ void __launch_bounds__(kThreads)
   best.reset();
   for (int base = 0; base < n; base += kTile) {
     __syncthreads();
-    for (int t = threadIdx.x; t < kTile && base + t < n; t += kThreads) {
-      const int j = base + t;
-      tx[t] = src[j * 3 + 0];
-      ty[t] = src[j * 3 + 1];
-      tz[t] = src[j * 3 + 2];
-    }
+    load_tile(src, base, n, tx, ty, tz);
     __syncthreads();
     const int len = min(kTile, n - base);
     for (int t = 0; t < len; ++t) {
@@ -66,21 +83,84 @@ __global__ void __launch_bounds__(kThreads)
   best.store(k, idx_out + o, dist_out + o);
 }
 
+template <int K, int L>
+__global__ void __launch_bounds__(kSplitThreads)
+    knn_split_kernel(const float* __restrict__ xyz, const float* __restrict__ q,
+                     const int* __restrict__ valid, int n, int m, int k,
+                     int* __restrict__ idx_out, float* __restrict__ dist_out) {
+  __shared__ float tx[kTile], ty[kTile], tz[kTile];
+  const int b = blockIdx.y;
+  const int sub = threadIdx.x & (L - 1);
+  const int qi = blockIdx.x * (kSplitThreads / L) + threadIdx.x / L;
+  const int nv = valid == nullptr ? n : valid[b];
+  const float* src = xyz + (size_t)b * n * 3;
+  // a group past M scans and merges all the same: the shuffles need the
+  // whole warp
+  const bool live = qi < m;
+  const float* qp = q + ((size_t)b * m + (live ? qi : 0)) * 3;
+  const float qx = qp[0], qy = qp[1], qz = qp[2];
+
+  // each lane: every L-th candidate, in index order, its own k best
+  knn_topk::List<K> best;
+  best.reset();
+  for (int base = 0; base < n; base += kTile) {
+    __syncthreads();
+    load_tile(src, base, n, tx, ty, tz);
+    __syncthreads();
+    const int len = min(kTile, n - base);
+    for (int t = sub; t < len; t += L) {
+      const int j = base + t;
+      float d2 = knn_topk::dist2(tx[t], ty[t], tz[t], qx, qy, qz);
+      if (j >= nv) d2 = knn_topk::kBig;
+      if (d2 < best.worst()) best.insert(d2, j);
+    }
+  }
+  const size_t o = ((size_t)b * m + (live ? qi : 0)) * k;
+  knn_topk::merge_lanes<L>(best, k, [&](int r, float d, int i) {
+    if (live && (r & (L - 1)) == sub)
+      knn_topk::List<K>::store_slot(d, i, idx_out + o + r, dist_out + o + r);
+  });
+}
+
+template <int K, int L>
+int launch_split(const float* xyz, const float* q, const int* valid, int batch, int n,
+                 int m, int k, int* idx_out, float* dist_out, cudaStream_t stream) {
+  constexpr int per_block = kSplitThreads / L;
+  const dim3 grid((m + per_block - 1) / per_block, batch);
+  knn_split_kernel<K, L><<<grid, kSplitThreads, 0, stream>>>(xyz, q, valid, n, m, k,
+                                                             idx_out, dist_out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int repsurf_knn_max_k() { return knn_topk::kMaxK; }
 
 // xyz [B, N, 3] f32, q [B, M, 3] f32, valid [B] i32 or null; idx_out
-// [B, M, k] i32, dist_out [B, M, k] f32.  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for k outside [1, 256].
+// [B, M, k] i32, dist_out [B, M, k] f32; lanes per query: 1 (knn_kernel),
+// 8, 16 or 32 (knn_split_kernel).  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for k outside [1, 256] or another lane count.
 extern "C" int repsurf_knn(const float* xyz, const float* q, const int* valid,
-                           int batch, int n, int m, int k, int* idx_out,
+                           int batch, int n, int m, int k, int lanes, int* idx_out,
                            float* dist_out, cudaStream_t stream) {
   if (k < 1 || k > knn_topk::kMaxK) return (int)cudaErrorInvalidValue;
-  const dim3 grid((m + kThreads - 1) / kThreads, batch);
   return knn_topk::dispatch_k(k, [&](auto kc) {
-    knn_kernel<decltype(kc)::value><<<grid, kThreads, 0, stream>>>(
-        xyz, q, valid, n, m, k, idx_out, dist_out);
-    return (int)cudaGetLastError();
+    constexpr int K = decltype(kc)::value;
+    switch (lanes) {
+      case 1: {
+        const dim3 grid((m + kThreads - 1) / kThreads, batch);
+        knn_kernel<K><<<grid, kThreads, 0, stream>>>(xyz, q, valid, n, m, k, idx_out,
+                                                     dist_out);
+        return (int)cudaGetLastError();
+      }
+      case 8:
+        return launch_split<K, 8>(xyz, q, valid, batch, n, m, k, idx_out, dist_out, stream);
+      case 16:
+        return launch_split<K, 16>(xyz, q, valid, batch, n, m, k, idx_out, dist_out, stream);
+      case 32:
+        return launch_split<K, 32>(xyz, q, valid, batch, n, m, k, idx_out, dist_out, stream);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   });
 }

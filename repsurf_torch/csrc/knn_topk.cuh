@@ -1,4 +1,5 @@
-// The k-best list shared by the kNN kernels (knn.cu, knn_window.cu).
+// The k-best list shared by the kNN kernels (knn.cu, knn_window.cu,
+// umbrella.cu), and the merges that split one query's scan over lanes.
 //
 // One thread keeps its K best (squared distance, point index) pairs sorted
 // ascending by the pair: a smaller distance first, and the lower index first
@@ -9,6 +10,13 @@
 // For K <= 32 the list lives in registers: every index into it is a
 // compile-time constant, so an insertion is one unrolled compare-and-swap
 // pass.  Longer lists sit in local memory and shift with an early stop.
+//
+// A query whose scan is split over lanes (each lane its own list over its
+// share of the candidates) gets its k best back in k rounds of an arg-min
+// on the pair over the lanes' heads: merge_lanes within a warp by shuffles,
+// merge_rows across the warps of a block through shared memory.  A point
+// index appears in one lane's share only, so the merged list is the one a
+// single list over every candidate would hold, bit for bit.
 
 #pragma once
 
@@ -68,18 +76,105 @@ struct List {
     }
   }
 
-  // the first k entries; a slot at or above kBig is missing: (0, sqrt(1e10))
+  // the first k entries (see store_slot)
   __device__ __forceinline__ void store(int k, int* idx, float* dist) const {
 #pragma unroll
     for (int s = 0; s < K; ++s) {
-      if (s < k) {
-        const bool missing = d[s] >= kBig;
-        idx[s] = missing ? 0 : i[s];
-        dist[s] = sqrtf(missing ? kBig : d[s]);
-      }
+      if (s < k) store_slot(d[s], i[s], idx + s, dist + s);
     }
   }
+
+  // one output slot; a pair at or above kBig is missing: (0, sqrt(1e10))
+  static __device__ __forceinline__ void store_slot(float dd, int ii, int* idx, float* dist) {
+    const bool missing = dd >= kBig;
+    *idx = missing ? 0 : ii;
+    *dist = sqrtf(missing ? kBig : dd);
+  }
 };
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// the smaller pair of the lanes of each aligned group of L (a power of two
+// up to 32), on every lane of the group
+template <int L>
+__device__ __forceinline__ void group_min(float& d, int& i) {
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1) {
+    const float od = __shfl_xor_sync(kFullMask, d, off);
+    const int oi = __shfl_xor_sync(kFullMask, i, off);
+    if (before(od, oi, d, i)) {
+      d = od;
+      i = oi;
+    }
+  }
+}
+
+// Merge the lists of each aligned group of L lanes: k rounds, in each of
+// which the group's smallest head wins, emit(r, d, i) sees it on every lane
+// of the group, and the lane that holds it pops it (every lane holding the
+// empty sentinel pops too: those are all alike).  Every lane of the warp
+// calls it with the same k, since the shuffles name the whole warp.  The
+// lanes' lists are consumed.
+template <int L, int K, typename Emit>
+__device__ __forceinline__ void merge_lanes(List<K>& best, int k, Emit emit) {
+  if constexpr (K <= 32) {
+    // registers: pop by shifting, every index a compile-time constant
+#pragma unroll
+    for (int r = 0; r < K; ++r) {
+      if (r >= k) break;
+      float d = best.d[0];
+      int i = best.i[0];
+      group_min<L>(d, i);
+      emit(r, d, i);
+      const bool pop = best.d[0] == d && best.i[0] == i;
+#pragma unroll
+      for (int s = 0; s < K - 1; ++s) {
+        if (pop) {
+          best.d[s] = best.d[s + 1];
+          best.i[s] = best.i[s + 1];
+        }
+      }
+      if (pop) {
+        best.d[K - 1] = INFINITY;
+        best.i[K - 1] = 0x7fffffff;
+      }
+    }
+  } else {
+    // local memory: pop by moving a head, no shift
+    int h = 0;
+    for (int r = 0; r < k; ++r) {
+      const float hd = h < K ? best.d[h] : INFINITY;
+      const int hi = h < K ? best.i[h] : 0x7fffffff;
+      float d = hd;
+      int i = hi;
+      group_min<L>(d, i);
+      emit(r, d, i);
+      h += (hd == d && hi == i) ? 1 : 0;
+    }
+  }
+}
+
+// Merge `rows` ascending lists of at least k pairs each (row w at
+// d[w * stride], i[w * stride], rows <= 32) in k rounds of a warp arg-min
+// over the rows' heads; called by one whole warp, emit(r, d, i) on every
+// lane.
+template <typename Emit>
+__device__ __forceinline__ void merge_rows(const float* d, const int* i, int rows, int stride,
+                                           int k, Emit emit) {
+  const int lane = threadIdx.x & 31;
+  const float* rd = d + lane * stride;
+  const int* ri = i + lane * stride;
+  int h = 0;
+  for (int r = 0; r < k; ++r) {
+    const float hd = lane < rows ? rd[h] : INFINITY;
+    const int hi = lane < rows ? ri[h] : 0x7fffffff;
+    float md = hd;
+    int mi = hi;
+    group_min<32>(md, mi);
+    emit(r, md, mi);
+    h += (lane < rows && hd == md && hi == mi) ? 1 : 0;
+  }
+}
 
 // the squared distance as the plain version writes it: differences, then
 // (dx*dx + dy*dy) + dz*dz, each op rounded on its own (-fmad=false)

@@ -76,7 +76,6 @@ constexpr int kSlab = 128;        // slab: points per slab, queries per block
 constexpr int kWindow = 3 * kSlab;
 constexpr int kMaxFans = 16;      // tq: G <= 16
 constexpr int kMaxLanes = 128;    // full, slab: G * C <= 128
-constexpr unsigned kFullMask = 0xffffffffu;
 
 // FIXED_ROTATION_ROWS, row-vector points: xr = x R00 + y R10 + z R20,
 // yr = x R01 + y R11 + z R21
@@ -321,40 +320,13 @@ __global__ void __launch_bounds__(kFullWarps * 32)
   }
   if (!live) return;
 
-  // k rounds: the warp's smallest head on (d^2, index) wins and is popped
-  // from its lane's list; indices are unique across lanes, so one lane pops
-  // (or every lane holding the empty sentinel, which are all alike)
+  // k rounds of the warp's arg-min on (d^2, index) (knn_topk.cuh)
   knn_topk::List<KMAX> merged;
   merged.reset();
-#pragma unroll
-  for (int r = 0; r < KMAX; ++r) {
-    if (r >= k) break;
-    float d = best.d[0];
-    int i = best.i[0];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float od = __shfl_xor_sync(kFullMask, d, off);
-      const int oi = __shfl_xor_sync(kFullMask, i, off);
-      if (knn_topk::before(od, oi, d, i)) {
-        d = od;
-        i = oi;
-      }
-    }
+  knn_topk::merge_lanes<32>(best, k, [&](int r, float d, int i) {
     merged.d[r] = d;
     merged.i[r] = i;
-    const bool pop = best.d[0] == d && best.i[0] == i;
-#pragma unroll
-    for (int s = 0; s < KMAX - 1; ++s) {
-      if (pop) {
-        best.d[s] = best.d[s + 1];
-        best.i[s] = best.i[s + 1];
-      }
-    }
-    if (pop) {
-      best.d[KMAX - 1] = INFINITY;
-      best.i[KMAX - 1] = 0x7fffffff;
-    }
-  }
+  });
   if (lane != 0) return;
   emit<KMAX>(merged, src, qx, qy, qz, o, out + ((size_t)b * n + q) * o.g * o.c);
 }

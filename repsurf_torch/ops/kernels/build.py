@@ -9,13 +9,16 @@ one is loaded as it is.  Nothing here runs when the module is imported.
 
 ``-fmad=false`` keeps nvcc from contracting ``a*b + c`` into one FMA: the
 kernels' distance sums must round op by op, as their plain versions do,
-or ties and radius boundaries flip.
+or ties and radius boundaries flip.  Each source compiles with ``-Xptxas
+-v``, and its report (registers, stack, spills per kernel) is kept beside
+the library; ``resources`` reads it.
 """
 
 import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -34,8 +37,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> (restype, argtypes); every pointer and the stream are c_void_p
 _SIGNATURES = {
-    "repsurf_fps": (_I, [_P, _P, _I, _I, _I, _P, _P, _P]),
-    "repsurf_fps_max_points": (_I, []),
+    "repsurf_fps": (_I, [_P, _P, _I, _I, _I, _P, _P, _P, _P]),
+    "repsurf_fps_register_points": (_I, []),
     "repsurf_fps_block_points": (_I, []),
     "repsurf_fps_cluster_size": (_I, [_I]),
     "repsurf_fps_round_floor": (_I, [_P, _I, _I, _I, _P, _P]),
@@ -56,11 +59,15 @@ _SIGNATURES = {
     ),
     "repsurf_ball_scatter": (_I, [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
     "repsurf_ball_scatter_scratch": (ctypes.c_longlong, [_I, _I, _I]),
-    "repsurf_knn": (_I, [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P]),
+    "repsurf_knn": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]),
     "repsurf_knn_max_k": (_I, []),
     "repsurf_knn_window": (
         _I,
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    ),
+    "repsurf_knn_window_resolve": (
+        _I,
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     ),
     "repsurf_knn_window_max_k": (_I, []),
 }
@@ -92,6 +99,31 @@ def library_path():
     return BUILD_DIR / f"librepsurf_kernels_{h.hexdigest()[:16]}.so"
 
 
+def report_path():
+    """Where the ptxas report of the current library's build lives."""
+    return library_path().with_suffix(".ptxas.txt")
+
+
+def resources(report):
+    """{mangled kernel name: (registers, stack bytes, spill store bytes,
+    spill load bytes)} from a ``-Xptxas -v`` report."""
+    out, name = {}, None
+    stack = (0, 0, 0)
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+        used = re.search(r"Used (\d+) registers", line)
+        if entry:
+            name, stack = entry.group(1), (0, 0, 0)
+        elif frame:
+            stack = tuple(int(g) for g in frame.groups())
+        elif used and name:
+            out[name] = (int(used.group(1)), *stack)
+            name = None
+    return out
+
+
 def build():
     """Compile the sources unless the library for them exists.
 
@@ -107,18 +139,20 @@ def build():
         objs = [Path(work) / f"{src.stem}.o" for src in _sources()]
         procs = [
             subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
             for src, obj in zip(_sources(), objs)
         ]
-        failed = []
+        failed, reports = [], []
         for src, proc in zip(_sources(), procs):
             out, _ = proc.communicate()
+            reports.append(out)
             if proc.returncode != 0:
                 failed.append(f"{src.name} ({proc.returncode}):\n{out}")
         if failed:
             raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        report_path().write_text("\n".join(reports))
         tmp = Path(work) / path.name
         link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
                               capture_output=True, text=True)

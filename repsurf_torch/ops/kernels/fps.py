@@ -5,9 +5,13 @@ Replaces repsurf_tpu/ops/pallas/fps.py:_fps_kernel.  ``fps`` runs the plain
 version for a tensor on the CPU and the kernel for a tensor on a CUDA
 device; there is no other choice between them.  The kernel keeps each
 thread's points in registers; it holds clouds of up to 8,192 points in one
-block and larger ones, up to 131,072 points, in a cluster of up to 16
-blocks (``csrc/fps.cu``; ``repsurf_fps_cluster_size`` gives the size for a
-cloud).  A refused cluster launch raises with its CUDA error.
+block (route ``block``) and larger ones, up to 131,072 points, in a
+cluster of up to 16 blocks (``cluster``; ``repsurf_fps_cluster_size``
+gives the size for a cloud).  A larger cloud, such as a whole voxel pass
+of a large room, takes the 16-block cluster with the points beyond its
+registers streamed from a [B, N, 4] float32 scratch of their coordinates
+and running distances (``stream``).  ``fps.launches_by_route`` counts the
+launches by route.  A refused cluster launch raises with its CUDA error.
 
 Semantics: seed index 0, running min of squared distance over every point
 (selected points included), argmax with the lowest index on ties; points
@@ -72,14 +76,15 @@ def fps(xyz, npoint, valid=None, return_xyz=False):
     b, n = xyz.shape[0], xyz.shape[1]
     xyz = cuda_f32(xyz, "xyz", (b, n, 3))
     lib = build.library()
-    if not 0 < n <= lib.repsurf_fps_max_points():
-        raise ValueError(
-            f"fps kernel holds at most {lib.repsurf_fps_max_points()} points "
-            f"per cloud in a cluster's registers, got {n}"
-        )
+    if n < 1:
+        raise ValueError("fps of an empty cloud")
     if npoint < 1:
         raise ValueError(f"npoint must be positive, got {npoint}")
     valid = counts_i32(valid, b, xyz.device)
+    route = ("block" if n <= lib.repsurf_fps_block_points() else
+             "cluster" if n <= lib.repsurf_fps_register_points() else "stream")
+    scratch = (torch.empty((b, n, 4), dtype=torch.float32, device=xyz.device)
+               if route == "stream" else None)
     idx = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
     sampled = (
         torch.empty((b, npoint, 3), dtype=torch.float32, device=xyz.device)
@@ -87,12 +92,12 @@ def fps(xyz, npoint, valid=None, return_xyz=False):
         else None
     )
     status = lib.repsurf_fps(
-        ptr(xyz), ptr(valid), b, n, npoint, ptr(idx), ptr(sampled),
+        ptr(xyz), ptr(valid), b, n, npoint, ptr(scratch), ptr(idx), ptr(sampled),
         stream(xyz.device),
     )
     check_launch(status, "repsurf_fps")
     fps.launches += 1
-    fps.launches_by_route["block" if n <= lib.repsurf_fps_block_points() else "cluster"] += 1
+    fps.launches_by_route[route] += 1
     return (idx, sampled) if return_xyz else idx
 
 

@@ -1,17 +1,24 @@
-"""Exact brute-force k-nearest neighbours: the CUDA kernel ``csrc/knn.cu``
-and its plain PyTorch version.
+"""Exact brute-force k-nearest neighbours: the CUDA kernels ``csrc/knn.cu``
+and their plain PyTorch version.
 
 Replaces repsurf_tpu/ops/pallas/knn.py:_knn_kernel.  ``knn_brute`` runs the
-plain version for a tensor on the CPU and the kernel for a tensor on a CUDA
-device; there is no other choice between them.  ``knn_plain`` is also the
-plain version of the window kernel (``knn_window.py``), which computes the
-same function.
+plain version for a tensor on the CPU and a kernel for a tensor on a CUDA
+device.  On the card it takes one of two routes, by shape alone
+(``brute_lanes``): one thread per query (``thread``), or an aligned group of
+8, 16 or 32 lanes per query, each over every L-th candidate with its own
+list, the group's lists merged in k shuffle rounds (``split``), for calls
+with too few queries to fill the card.  ``knn_brute.launches_by_route``
+counts the launches by route.  ``knn_plain`` is also the plain version of
+the window kernel (``knn_window.py``), which computes the same function.
 
 Semantics: squared distances from direct differences, ``dx*dx + dy*dy +
 dz*dz`` summed left to right; points at or beyond ``valid[b]`` never count;
 ascending, the lowest index first on ties; a missing slot (fewer than k
 valid points) is (0, sqrt(1e10)); the distance returned is the sqrt.
 """
+
+import collections
+import functools
 
 import torch
 
@@ -21,6 +28,8 @@ from .common import check_launch, counts_i32, cuda_f32, ptr, stream
 
 # bytes of one [B, chunk, N] float32 distance block of the plain version
 _CHUNK_BYTES = 2**28
+# lanes a query of the split route; 1 is the thread-per-query route
+LANES = (1, 8, 16, 32)
 
 
 def pairwise_dist2(q, p):
@@ -92,25 +101,51 @@ def check_knn_args(k, xyz, new_xyz, valid, max_k):
     return xyz, new_xyz, counts_i32(valid, b, xyz.device)
 
 
-def knn_brute(k, xyz, new_xyz, valid=None):
-    """Exact kNN (see the module doc); the plain version on the CPU, the
+def brute_lanes(queries, k, sms):
+    """Lanes per query for ``queries`` = B*M queries of k neighbours on a
+    card of ``sms`` SMs: the fewest of 1 (a thread a query), 8, 16 and 32
+    whose threads reach 8192 / k an SM, kept within [256, 1024], and 32
+    when none does.  Every lane of the split route keeps its own k-best
+    list, so the lists' upkeep grows with the lanes times k, and a larger k
+    wants fewer lanes (measured on an H100: PERF.md, kernel table row 6)."""
+    want = sms * max(256, min(1024, 8192 // k))
+    for lanes in LANES:
+        if queries * lanes >= want:
+            return lanes
+    return LANES[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def knn_brute(k, xyz, new_xyz, valid=None, lanes=None):
+    """Exact kNN (see the module doc); the plain version on the CPU, a
     CUDA kernel on a CUDA device, where the inputs are cut from the graph
     (indices carry no gradient).  Same arguments and returns as
-    ``knn_plain``."""
+    ``knn_plain``; ``lanes`` (1, 8, 16 or 32) forces a route on the card,
+    None takes ``brute_lanes``'s."""
+    if lanes is not None and lanes not in LANES:
+        raise ValueError(f"lanes must be one of {LANES}, got {lanes}")
     if xyz.device.type == "cpu":
         return knn_plain(k, xyz, new_xyz, valid=valid)
     lib = build.library()
     xyz, new_xyz, valid = check_knn_args(k, xyz, new_xyz, valid, lib.repsurf_knn_max_k())
     b, n, m = xyz.shape[0], xyz.shape[1], new_xyz.shape[1]
+    if lanes is None:
+        lanes = brute_lanes(b * m, k, _sm_count(xyz.device.index))
     idx = torch.empty((b, m, k), dtype=torch.int32, device=xyz.device)
     dist = torch.empty((b, m, k), dtype=torch.float32, device=xyz.device)
     status = lib.repsurf_knn(
-        ptr(xyz), ptr(new_xyz), ptr(valid), b, n, m, k, ptr(idx), ptr(dist),
+        ptr(xyz), ptr(new_xyz), ptr(valid), b, n, m, k, lanes, ptr(idx), ptr(dist),
         stream(xyz.device),
     )
     check_launch(status, "repsurf_knn")
     knn_brute.launches += 1
+    knn_brute.launches_by_route["thread" if lanes == 1 else "split"] += 1
     return idx, dist
 
 
 knn_brute.launches = 0
+knn_brute.launches_by_route = collections.Counter()

@@ -6,12 +6,23 @@ the same function as the brute kernel, bit for bit (see ``knn.py``).
 ``knn_window`` runs the plain version for a tensor on the CPU and the kernel
 for a tensor on a CUDA device.
 
-``window_tables`` is the data preparation, plain torch ops on the device as
-the JAX package does it in XLA: the grid sized from (N, k), the points
-sorted by cell with the start of every cell's run, and the queries in cell
-order.  The kernel scans the 3 x 3 x 3 cells around each query and rescans
-the whole cloud for a query whose k-th distance the window cannot vouch
-for; ``knn_window.resolved`` holds the last call's per-sample count of such
+A call is three steps on one stream, and the host waits on none of them:
+
+* ``window_tables``, the data preparation, plain torch ops on the device as
+  the JAX package does it in XLA: the grid sized from (N, k), the points
+  sorted by cell with the start of every cell's run, and the queries in
+  cell order;
+* ``window_pass``, the window kernel: each query scans the 3 x 3 x 3 cells
+  around its own; a query whose k-th distance the window cannot vouch for
+  is appended to its sample's list of failing queries instead;
+* ``window_resolve``, the re-solve kernel: a block of lanes scans the whole
+  valid cloud for each listed query, skipping every point beyond the last
+  distance of the window's list, a bound on the k-th (the JAX package's compacted brute re-solve,
+  knn_window.py:447-533).
+
+``knn_window.launches`` counts the window kernel's launches,
+``knn_window.resolve_launches`` the re-solve kernel's;
+``knn_window.resolved`` holds the last call's per-sample count of failing
 queries, ``knn_window.resolved_total`` the sum over calls since it was last
 set to 0.
 """
@@ -20,11 +31,13 @@ import torch
 
 from . import build
 from .common import check_launch, ptr, stream
-from .knn import check_knn_args, knn_plain
+from .knn import _sm_count, check_knn_args, knn_plain
 
 # the guard's allowance for the float32 rounding of the cell assignment,
 # relative to the largest coordinate magnitude of the grid's bounding box
 _SLACK = 1e-5
+# re-solve blocks a call, over all samples, for each SM of the card
+_RESOLVE_BLOCKS_PER_SM = 2
 
 
 def window_grid(n, k):
@@ -85,32 +98,70 @@ def window_tables(k, xyz, new_xyz, valid=None):
                 cs=cs.contiguous(), slack=(scale * _SLACK).contiguous(), gxy=gxy, gz=gz)
 
 
+def window_pass(k, new_xyz, tables):
+    """The window kernel on ``window_tables``'s output: (idx, dist,
+    resolved, fails, fail_kth), the rows of the failing queries unwritten,
+    ``resolved`` [B] int32 their count, ``fails`` [B, M] int32 their
+    indices in its first ``resolved[b]`` slots, in no set order, and
+    ``fail_kth`` [B, M] float32 beside it the last squared distance of
+    each one's window list.  CUDA tensors only."""
+    lib = build.library()
+    b, m = new_xyz.shape[0], new_xyz.shape[1]
+    n = tables["pts"].shape[1]
+    dev = new_xyz.device
+    idx = torch.empty((b, m, k), dtype=torch.int32, device=dev)
+    dist = torch.empty((b, m, k), dtype=torch.float32, device=dev)
+    resolved = torch.zeros((b,), dtype=torch.int32, device=dev)
+    fails = torch.empty((b, m), dtype=torch.int32, device=dev)
+    fail_kth = torch.empty((b, m), dtype=torch.float32, device=dev)
+    t = tables
+    status = lib.repsurf_knn_window(
+        ptr(t["pts"]), ptr(t["starts"]), ptr(new_xyz), ptr(t["qorder"]),
+        ptr(t["lo"]), ptr(t["cs"]), ptr(t["slack"]), b, n, m, k, t["gxy"], t["gz"],
+        ptr(idx), ptr(dist), ptr(resolved), ptr(fails), ptr(fail_kth), stream(dev),
+    )
+    check_launch(status, "repsurf_knn_window")
+    knn_window.launches += 1
+    return idx, dist, resolved, fails, fail_kth
+
+
+def window_resolve(k, new_xyz, tables, idx, dist, resolved, fails, fail_kth):
+    """The re-solve kernel: writes the listed queries' rows of idx and dist
+    (``window_pass``'s outputs) in place.  A fixed grid of blocks strides
+    over each sample's count on the device."""
+    lib = build.library()
+    b, m = new_xyz.shape[0], new_xyz.shape[1]
+    n = tables["pts"].shape[1]
+    cells = tables["starts"].shape[1] - 1
+    total = _RESOLVE_BLOCKS_PER_SM * _sm_count(new_xyz.device.index)
+    blocks = max(1, min(m, -(-total // b)))
+    status = lib.repsurf_knn_window_resolve(
+        ptr(tables["pts"]), ptr(tables["starts"]), ptr(new_xyz), ptr(fails), ptr(fail_kth),
+        ptr(resolved), b, n, m, k, cells, blocks, ptr(idx), ptr(dist), stream(new_xyz.device),
+    )
+    check_launch(status, "repsurf_knn_window_resolve")
+    knn_window.resolve_launches += 1
+
+
 def knn_window(k, xyz, new_xyz, valid=None):
     """Exact kNN (the semantics of ``knn.knn_plain``); the plain version on
-    the CPU, the window kernel on a CUDA device, where the inputs are cut
-    from the graph.  Returns idx [B, M, k] int32, dist [B, M, k] float32."""
+    the CPU, the window and re-solve kernels on a CUDA device, where the
+    inputs are cut from the graph.  Returns idx [B, M, k] int32, dist
+    [B, M, k] float32."""
     if xyz.device.type == "cpu":
         return knn_plain(k, xyz, new_xyz, valid=valid)
     lib = build.library()
     xyz, new_xyz, valid = check_knn_args(k, xyz, new_xyz, valid,
                                          lib.repsurf_knn_window_max_k())
-    b, n, m = xyz.shape[0], xyz.shape[1], new_xyz.shape[1]
     t = window_tables(k, xyz, new_xyz, valid)
-    idx = torch.empty((b, m, k), dtype=torch.int32, device=xyz.device)
-    dist = torch.empty((b, m, k), dtype=torch.float32, device=xyz.device)
-    resolved = torch.zeros((b,), dtype=torch.int32, device=xyz.device)
-    status = lib.repsurf_knn_window(
-        ptr(t["pts"]), ptr(t["starts"]), ptr(new_xyz), ptr(t["qorder"]),
-        ptr(t["lo"]), ptr(t["cs"]), ptr(t["slack"]), b, n, m, k, t["gxy"], t["gz"],
-        ptr(idx), ptr(dist), ptr(resolved), stream(xyz.device),
-    )
-    check_launch(status, "repsurf_knn_window")
-    knn_window.launches += 1
+    idx, dist, resolved, fails, fail_kth = window_pass(k, new_xyz, t)
+    window_resolve(k, new_xyz, t, idx, dist, resolved, fails, fail_kth)
     knn_window.resolved = resolved
     knn_window.resolved_total = knn_window.resolved_total + resolved.sum()
     return idx, dist
 
 
 knn_window.launches = 0
+knn_window.resolve_launches = 0
 knn_window.resolved = None  # [B] int32 on the device, the last call's count
 knn_window.resolved_total = 0  # summed on the device; set to 0 to restart

@@ -12,6 +12,9 @@ held to the JAX package on the cases that stress the kernel's exchange.
   candidate: the order-preserving bits of the distance over the inverted
   index.  ``_fps_key`` replays the key; it must order as (distance, -index)
   does, -1 (invalid points) and -FLT_MAX (slots past N) included.
+* A cloud over the card's 131,072 register points (the stream route) takes
+  the plain FPS on the CPU, as every size does, and agrees with the JAX
+  package's XLA FPS.
 """
 
 import jax.numpy as jnp
@@ -20,10 +23,11 @@ import pytest
 import torch
 
 from repsurf_torch.ops.kernels.ball_group import ball_scatter, selection_csr
-from repsurf_torch.ops.kernels.fps import fps_plain
+from repsurf_torch.ops.kernels.fps import fps, fps_plain
 from repsurf_torch.ops.neighbors import ball_query as t_ball_query
 from repsurf_tpu.ops.neighbors import ball_query as j_ball_query
 from repsurf_tpu.ops.pallas.fps import fps_pallas
+from repsurf_tpu.ops.sampling import farthest_point_sample_xla
 
 torch.set_num_threads(1)
 
@@ -206,3 +210,18 @@ def test_fps_plain_matches_pallas_on_exchange_cases(kind):
         np.testing.assert_array_equal(got[i, :m], want[i, :m])
     if kind == "duplicates":  # every tie went to the lower of the two copies
         assert (got < 1024).all() and len(np.unique(got[0])) == npoint
+
+
+def test_fps_over_the_register_points_takes_the_plain_path_on_the_cpu():
+    """[1, 140,000] points, more than the kernel's registers hold: on the
+    CPU ``fps`` is the plain version (no launch counted) and equals the JAX
+    XLA FPS.  Coordinates on a 2^-10 grid make every squared distance exact
+    in both packages."""
+    rs = np.random.RandomState(4)
+    xyz = (np.round((rs.rand(1, 140000, 3) * 2 - 1) * 1024) / 1024).astype(np.float32)
+    before = (fps.launches, dict(fps.launches_by_route))
+    got = fps(torch.from_numpy(xyz), 64)
+    assert (fps.launches, dict(fps.launches_by_route)) == before
+    np.testing.assert_array_equal(got.numpy(), fps_plain(torch.from_numpy(xyz), 64).numpy())
+    want = np.asarray(farthest_point_sample_xla(jnp.asarray(xyz), 64))
+    np.testing.assert_array_equal(got.numpy(), want)

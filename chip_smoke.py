@@ -8,18 +8,26 @@ Run from the root of a checkout.  Phases, each printing its lines:
                nvidia-smi gives them, the torch / CUDA versions, TF32 off;
   2. build   - compiles repsurf_torch/csrc/*.cu with nvcc, prints the time
                and, from ptxas's report, the registers, stack and spills
-               of the kNN and FPS kernels;
+               of the kNN, FPS, umbrella tq (both list lengths) and
+               ball-feature kernels;
   3. kernels - each CUDA kernel against its plain PyTorch version on the
                card, at the shapes of the classification eval path, with
                kernel and plain times (CUDA events, median of 20 runs), the
-               bound and, where one PyTorch call computes the same
-               function, that call's time; each FPS line also its time a
-               round and the round floor of its launch shape (the same
-               rounds with the sweep removed);
+               call's device time (torch.profiler), the bound and, where
+               one PyTorch call computes the same function, that call's
+               time; each FPS line also its time a round and the round
+               floor of its launch shape (the same rounds with the sweep
+               removed); each ball-feature line its device time split into
+               the kernel and the channels' torch.cat; the ball-feature
+               kernel at edge shapes (C, S, ragged M, valid counts, empty
+               balls, a cloud past its shared stage), its feat and
+               selection bit-equal to the plain version and ball_query;
   3b. umbrella kernels - tq, full and slab against the plain composition
                at the cls shape (C = 10, and C = 9 for tq) and at a small
-               room's pass (the seg style), full bit-equal to tq, the slab's
-               re-solved queries per sample equal to the plain guard
+               room's pass (the seg style), full bit-equal to tq, each
+               timed tq's device time beside its scan floor (the same
+               launch without the fan geometry and the stores), the
+               slab's re-solved queries per sample equal to the plain guard
                replay's, the seg-style gradient; the kernel entry driven
                with impl full and slab for their launch counts;
   4. slice   - repsurf_ssg_umb at full width, seeded random weights, vote
@@ -148,6 +156,9 @@ PTXAS_KERNELS = (  # (label, a substring of the mangled name) for the build's re
     ("knn_window_kernel<32>", "knn_window_kernelILi32EE"),
     ("knn_resolve_kernel<32>", "knn_resolve_kernelILi32EE"),
     ("fps_kernel<32,stream>", "fps_kernelILi32ELb1EE"),
+    ("umbrella_tq_kernel<9>", "umbrella_tq_kernelILi9ELb0EE"),
+    ("umbrella_tq_kernel<17>", "umbrella_tq_kernelILi17ELb0EE"),
+    ("ball_feature_kernel", "19ball_feature_kernelE"),
 )
 FPS_FLOPS = 9  # a distance and the running minimum
 
@@ -265,19 +276,21 @@ def bound(flops, nbytes):
 
 def _entry(name, source, replaces, err, kernel_fn, plain_fn, work, timer=median_ms,
            library_fn=None):
-    """One kernels-JSON entry: the kernel's and its plain version's times,
-    ``work`` = (flops, bytes) of this call for the bound, and the time of
-    ``library_fn``, one PyTorch call computing the same function, where one
-    exists."""
+    """One kernels-JSON entry: the kernel's and its plain version's times
+    (CUDA events around the call, host work included) and the call's device
+    time (torch.profiler, every kernel it launches), ``work`` = (flops,
+    bytes) of this call for the bound, and the time of ``library_fn``, one
+    PyTorch call computing the same function, where one exists."""
     ms, plain_ms = timer(kernel_fn), timer(plain_fn)
+    dev_ms = device_ms(kernel_fn)
     library_ms = None if library_fn is None else timer(library_fn)
     bound_ms, bound_by = bound(*work)
     lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
-    print(f"  {name}: max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
-          f"bound {bound_ms:.4f} ms ({bound_by})")
+    print(f"  {name}: max_abs_err {err:.3g}, kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms ({bound_by})")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "max_abs_err": float(err), "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
 def fps_round_floor_ms(xyz, npoint):
@@ -403,7 +416,8 @@ def check_umbrella(impl, xyz, style, return_dist=True, valid=None, near=None, k=
                    timed=True):
     """One umbrella kernel against the plain composition: within UMB_ATOL
     away from azimuth near-ties (at most 0.1 % of the points); the slab's
-    re-solved queries per sample equal to the plain guard replay's.
+    re-solved queries per sample equal to the plain guard replay's; a timed
+    tq beside its scan floor's device time.
     Returns (features, its kernels-JSON entry when ``timed``, else None)."""
     from repsurf_torch.ops.kernels.umbrella import (
         SLAB,
@@ -411,6 +425,7 @@ def check_umbrella(impl, xyz, style, return_dist=True, valid=None, near=None, k=
         slab_guard_plain,
         umbrella_fan_features_plain,
         umbrella_features_kernel,
+        umbrella_tq_scan_floor,
     )
 
     args = dict(drop_self=style == "cls", rotate=style == "seg", return_dist=return_dist,
@@ -459,47 +474,89 @@ def check_umbrella(impl, xyz, style, return_dist=True, valid=None, near=None, k=
         (KNN_FLOPS * pairs, 4 * (3 * b * n + b * n * g * c)),
     )
     entry.update(impl=impl, style=style)
+    if impl == "tq":
+        floor = device_ms(lambda: umbrella_tq_scan_floor(xyz, k, **args))
+        entry["floor_device_ms"] = floor
+        print(f"    {tag}: scan floor {floor:.4f} ms of the kernel's {entry['device_ms']:.4f} ms "
+              f"(device time)")
     return feat, entry
 
 
-def check_ball(radius, nsample, xyz, new_xyz, tensors, replaces):
+def check_ball(radius, nsample, xyz, new_xyz, tensors, valid=None, replaces=None):
+    """The feature kernel at one shape: feat and the selection it writes
+    bit-equal to the plain version's and to ball_query's, pos within
+    POS_ATOL.  With ``replaces``, also through the autograd entry, timed:
+    its kernels-JSON entry, the call's device time split into the kernel,
+    the concatenation of the channel tensors and the rest."""
     from repsurf_torch.ops.kernels.ball_group import (
         ball_group_feature,
         ball_group_feature_plain,
+        ball_group_feature_selection,
     )
     from repsurf_torch.ops.neighbors import ball_query
 
     args = (radius, nsample, xyz, new_xyz, tensors)
-    pos, feat = ball_group_feature(*args, return_polar=True)
-    ppos, pfeat = ball_group_feature_plain(*args, return_polar=True)
-    # the selected indices, read back through an extra channel holding each
-    # point's index (exact in f32)
-    col = torch.arange(xyz.shape[1], device=xyz.device, dtype=torch.float32)
-    col = col[None, :, None].expand(xyz.shape[0], -1, 1).contiguous()
-    _, with_idx = ball_group_feature(radius, nsample, xyz, new_xyz, [*tensors, col])
-    torch.cuda.synchronize()
+    b, n, m = xyz.shape[0], xyz.shape[1], new_xyz.shape[1]
     c = sum(t.shape[-1] for t in tensors)
-    if not torch.equal(with_idx[..., -1].to(torch.int32),
-                       ball_query(radius, nsample, xyz, new_xyz)):
-        raise AssertionError(f"ball C={c}: selected indices differ")
+    tag = (f"ball_feature[{b}x{n}->{m},S={nsample},C={c}"
+           f"{'' if valid is None else ',valid ' + str(valid.tolist())}]")
+    pos, feat, sel = ball_group_feature_selection(*args, valid=valid, return_polar=True)
+    ppos, pfeat = ball_group_feature_plain(*args, valid=valid, return_polar=True)
+    psel = ball_query(radius, nsample, xyz, new_xyz, valid=valid)
+    torch.cuda.synchronize()
+    if not torch.equal(sel, psel):
+        raise AssertionError(f"{tag}: the selection differs from ball_query's")
     if not torch.equal(feat, pfeat):
-        raise AssertionError(f"ball C={c}: feat not bit-equal")
+        raise AssertionError(f"{tag}: feat not bit-equal")
     err = float((pos - ppos).abs().max())
     if err > POS_ATOL:
-        raise AssertionError(f"ball C={c}: pos off by {err}")
-    b, n, m = xyz.shape[0], xyz.shape[1], new_xyz.shape[1]
+        raise AssertionError(f"{tag}: pos off by {err}")
+    if replaces is None:
+        return sel
+    kernel_fn = functools.partial(ball_group_feature, *args, return_polar=True)
+    gpos, gfeat = kernel_fn()
+    if not (torch.equal(gfeat, feat) and torch.equal(gpos, pos)):
+        raise AssertionError(f"{tag}: the autograd entry differs from the selection entry")
     entry = _entry(
-        f"ball_feature[{b}x{n}->{m},S={nsample},C={c}]",
-        "repsurf_torch/csrc/ball_group.cu", replaces, err,
-        lambda: ball_group_feature(*args, return_polar=True),
+        tag, BALL_SRC, replaces, err, kernel_fn,
         lambda: ball_group_feature_plain(*args, return_polar=True),
         # the ball query's distances; xyz, centers and channels in, pos (6)
         # and feat (C - 3) out
         (KNN_FLOPS * b * m * n, 4 * (3 * b * n + 3 * b * m + b * n * c
                                      + b * m * nsample * (6 + c - 3))),
     )
-    entry["channels"] = c
+    split = device_split(kernel_fn, {"kernel": "ball_feature_kernel", "cat": "Cat"})
+    entry.update(channels=c, kernel_device_ms=split["kernel"], cat_device_ms=split["cat"])
+    print(f"    {tag}: device time (profiler) kernel {split['kernel']:.4f} ms, the channels' "
+          f"torch.cat {split['cat']:.4f} ms, other {split['other']:.4f} ms")
     return entry
+
+
+def check_ball_edges(dev):
+    """The feature kernel at untimed edge shapes, each as check_ball: C in
+    (4, 13, 141, 142); S in (1, 33, 64, 128); M = 37, not a multiple of a
+    block's 8 queries; valid counts; empty balls (queries far outside the
+    cloud); a cloud of 20,000 points, larger than the kernel's shared
+    stage of 2,048, so it is scanned stage by stage."""
+    gen = torch.Generator(dev).manual_seed(12)
+
+    def case(b, n, m, nsample, c, radius, valid, far):
+        xyz = torch.rand((b, n, 3), generator=gen, device=dev) * 2 - 1
+        q = xyz[:, torch.randperm(n, generator=torch.Generator().manual_seed(n))[:m].to(dev)]
+        q[:, :far] += 50.0  # empty balls: point 0
+        extra = torch.randn((b, n, c - 3), generator=gen, device=dev)
+        sel = check_ball(radius, nsample, xyz, q, [xyz, extra],
+                         valid=torch.tensor(valid, device=dev))
+        return int((sel[:, far:] != sel[:, far:, :1]).any(-1).sum())
+
+    shapes = ([(2, 300, 37, 32, c, 0.3, [300, 151], 3) for c in (4, 13, 141, 142)]
+              + [(2, 700, 37, s, 13, 0.45, [700, 512], 2) for s in (1, 33, 64, 128)]
+              + [(2, 20000, 512, 32, 13, 0.12, [20000, 9001], 4)])
+    varied = [case(*shape) for shape in shapes][-1]
+    print(f"  ball_feature edge shapes: {len(shapes)} calls (C in (4, 13, 141, 142), S in (1, "
+          f"33, 64, 128), M = 37, valid counts, empty balls, [2x20000->512] past the 2,048-point "
+          f"stage with {varied} balls of more than one point): feat and selection bit-equal to "
+          f"the plain version and ball_query, pos within {POS_ATOL}")
 
 
 def phase_kernels(dev):
@@ -522,12 +579,13 @@ def phase_kernels(dev):
         model = get_model("repsurf.repsurf_ssg_umb", generator=gen).to(dev).eval()
         normal1 = model.surface_constructor(xyz1)
         entries.append(check_ball(0.2, 32, xyz1, xyz2, [xyz1, normal1],
-                                  "repsurf_tpu/ops/pallas/ball_group.py:374"))
+                                  replaces="repsurf_tpu/ops/pallas/ball_group.py:374"))
         normal2 = index_points(normal1, idx2)
         feat2 = torch.randn((BATCH, 512, 128), generator=torch.Generator(dev).manual_seed(1),
                             device=dev)
         entries.append(check_ball(0.4, 64, xyz2, xyz3, [xyz2, normal2, feat2],
-                                  "repsurf_tpu/ops/pallas/ball_group.py:208"))
+                                  replaces="repsurf_tpu/ops/pallas/ball_group.py:208"))
+        check_ball_edges(dev)
     stages = dict(xyz1=xyz1, xyz2=xyz2, xyz3=xyz3, normal1=normal1, normal2=normal2,
                   feat2=feat2)
     return entries, stages
@@ -724,7 +782,6 @@ def check_scatter(name, replaces, sel, g, n, coff, backward_fn):
                    # in, [B, N, coff + C] out
                    (g.numel(), 4 * (g.numel() + sel.numel() + bsz * n * (coff + c))),
                    library_fn=lambda: acc.index_add_(0, key, rows))
-    entry["device_ms"] = device_ms(lambda: ball_scatter(sel, g, n, coff))
     entry["library_device_ms"] = device_ms(lambda: acc.index_add_(0, key, rows))
     print(f"    {name}: device time (profiler) kernel {entry['device_ms']:.4f} ms, "
           f"index_add_ {entry['library_device_ms']:.4f} ms")
@@ -1145,7 +1202,6 @@ def check_knn(kind, k, xyz, q, valid=None, lanes=None):
                    lambda: fn(k, xyz, q, valid=valid), lambda: knn_plain(k, xyz, q, valid=valid),
                    (KNN_FLOPS * pairs, 4 * (3 * b * n + 3 * b * m + 2 * b * m * k)),
                    timer=adaptive_ms)
-    entry["device_ms"] = device_ms(lambda: fn(k, xyz, q, valid=valid))
     if resolved is not None:
         entry["resolved_per_sample"] = resolved
         entry.update(window_split(name, k, xyz, q))
@@ -1184,7 +1240,6 @@ def check_resolve(name, k, xyz, q, resolved_per_sample):
                    # the listed queries against every valid point; the cloud
                    # in once, the listed rows out
                    (KNN_FLOPS * total * nv, 4 * (4 * xyz.shape[0] * nv + total * (3 + 2 * k))))
-    entry["device_ms"] = device_ms(lambda: window_resolve(k, q, t, *outs))
     entry["resolved_per_sample"] = counts
     print(f"    {name}: re-solved rows equal to knn_plain; device time (profiler) "
           f"{entry['device_ms']:.4f} ms")
@@ -1449,8 +1504,8 @@ def phase_seg_slice(dev, profile=False):
 
 def phase_umbrella(dev, xyz1):
     """The three umbrella kernels against the plain composition at the cls
-    shape (both C) and at a small room's pass, full bit-equal to tq, the
-    seg-style gradient; then the kernel entry driven with impl full and
+    shape (both C) and at a small room's pass, full bit-equal to tq, each
+    timed tq beside its scan floor, the seg-style gradient; then the kernel entry driven with impl full and
     slab at both shapes (no model reaches them, as in the JAX package),
     the path their launch counts are read from."""
     from repsurf_torch.data.synthetic_scene import synthetic_room
@@ -1470,13 +1525,17 @@ def phase_umbrella(dev, xyz1):
             for impl in ("tq", "full", "slab"):
                 outs[style, impl], e = check_umbrella(impl, xyz, style, valid=v, near=near[style])
                 entries.append(e)
-            if style == "cls":
-                entries.append(check_umbrella("tq", xyz, style, return_dist=False,
-                                              near=near[style])[1])
             same = torch.equal(outs[style, "full"], outs[style, "tq"])
             print(f"  {style}: full bit-equal to tq: {same}")
             if not same:
                 raise AssertionError(f"umbrella {style}: full differs from tq")
+            if style == "cls":
+                want, e = check_umbrella("tq", xyz, style, return_dist=False, near=near[style])
+                full9 = umbrella_features_kernel(xyz, 9, drop_self=True, return_dist=False,
+                                                 impl="full")
+                if not torch.equal(full9, want):
+                    raise AssertionError("umbrella cls C=9: full differs from tq")
+                entries.append(e)
         # other k (the 17-long list too) and samples with fewer valid points
         # than k, at a small shape, untimed
         small = torch.from_numpy(
@@ -1492,6 +1551,8 @@ def phase_umbrella(dev, xyz1):
                                   k=k, timed=False)[0] for impl in impls]
             if len(got) > 1 and not torch.equal(got[0], got[1]):
                 raise AssertionError(f"umbrella k={k} {style}: full differs from tq")
+        print("  small shapes (k in 5, 13, 14, 12, 17, 16; valid 8 and 5): tq bit-equal to "
+              "full")
     check_umbrella_grad(seg, "seg")
 
     reset_umbrella_counts()

@@ -14,10 +14,14 @@
 // S*(C+3) floats, 37 KB, against a scan of at most N = 512 candidates; the
 // kernels are bound by device-memory writes.  The design scans the
 // candidates 32 at a time with one warp ballot, so the in-order selection
-// costs a popcount per hit, stops as soon as S hits are found, and then
-// writes each query's outputs with consecutive lanes on consecutive
-// addresses.  Each forward can also write the selection, [B, M, S] int32,
-// which the backward reuses instead of searching again.
+// costs a popcount per hit and stops as soon as S hits are found.  The
+// feature kernel's blocks each take queries of one sample and stage its
+// coordinates in shared memory once, and write each query's pos and feat
+// as contiguous spans of 16-byte stores (see ball_feature_kernel); the
+// row-grouping kernel scans from device memory and writes with
+// consecutive lanes on consecutive addresses.  Each forward can also write
+// the selection, [B, M, S] int32, which the backward reuses instead of
+// searching again.
 //
 // Per query (semantics identical to the plain versions in
 // ops/kernels/ball_group.py): the first S valid points, in index order,
@@ -67,9 +71,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "knn_topk.cuh"
+
 namespace {
 
-constexpr int kWarps = 4;
+constexpr int kWarps = 4;        // ball_group: queries (warps) per block
+constexpr int kFeatWarps = 8;    // ball_feature: queries (warps) per block
+constexpr int kStage = 2048;     // ball_feature: staged points (24 KB)
+constexpr int kPosStage = 32 * 6 + 4;  // ball_feature: a round of pos, 16-byte slack
 constexpr int kMaxS = 128;
 constexpr int kScatterThreads = 512;
 
@@ -98,70 +107,165 @@ __device__ int ball_select(const float* __restrict__ src, int nv, float qx,
   return count;
 }
 
-__global__ void ball_feature_kernel(const float* __restrict__ xyz,
-                                    const float* __restrict__ new_xyz,
-                                    const float* __restrict__ tcat,
-                                    const int* __restrict__ valid, int batch,
-                                    int n, int m, int c, int nsample, float r2,
-                                    int return_polar, float* __restrict__ pos,
-                                    float* __restrict__ feat,
-                                    int* __restrict__ sel_out) {
-  __shared__ int sel[kWarps][kMaxS];
+// The feature kernel: blocks of kFeatWarps queries of one sample, a warp a
+// query.  The block stages its sample's valid coordinates in shared memory
+// as three planes (kStage points at a time), each warp selects from them as
+// ball_select does (32 candidates a ballot, four ballots a step, hits in
+// index order, stop after the step that reaches S hits), then writes its
+// query's outputs as contiguous spans: pos through a shared stage of 32
+// slots at a time, feat walked element by element over its [S, C-3] span,
+// both with 16-byte stores (knn_topk::store_span for pos;
+// feat four elements a lane, a scalar head and tail around the aligned
+// body).  The walk keeps each lane's (slot, channel) and steps it by 128
+// elements with a carry: no integer division per element.
+__global__ void __launch_bounds__(kFeatWarps * 32)
+    ball_feature_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz,
+                        const float* __restrict__ tcat, const int* __restrict__ valid, int n,
+                        int m, int c, int nsample, float r2, int return_polar,
+                        float* __restrict__ pos, float* __restrict__ feat,
+                        int* __restrict__ sel_out) {
+  __shared__ float px[kStage], py[kStage], pz[kStage];
+  __shared__ int sel[kFeatWarps][kMaxS];
+  __shared__ __align__(16) float pstage[kFeatWarps][kPosStage];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int query = blockIdx.x * kWarps + warp;
-  if (query >= batch * m) return;  // whole warps leave together
-  const int b = query / m;
+  const int b = blockIdx.y;
+  const int mq = blockIdx.x * kFeatWarps + warp;
+  const bool live = mq < m;  // uniform over the warp
   const int nv = valid == nullptr ? n : valid[b];
   const float* src = xyz + (size_t)b * n * 3;
-  const float qx = new_xyz[(size_t)query * 3 + 0];
-  const float qy = new_xyz[(size_t)query * 3 + 1];
-  const float qz = new_xyz[(size_t)query * 3 + 2];
+  const size_t query = (size_t)b * m + (live ? mq : 0);
+  const float qx = new_xyz[query * 3 + 0];
+  const float qy = new_xyz[query * 3 + 1];
+  const float qz = new_xyz[query * 3 + 2];
   int* slots = sel[warp];
 
-  const int count = ball_select(src, nv, qx, qy, qz, r2, nsample, slots, lane);
-  const int filled = min(count, nsample);
-  const int first = count == 0 ? 0 : slots[0];
-
-  const int pc = return_polar ? 6 : 3;
-  float* pout = pos + (size_t)query * nsample * pc;
-  for (int s = lane; s < nsample; s += 32) {
-    const int j = s < filled ? slots[s] : first;
-    if (sel_out != nullptr) sel_out[(size_t)query * nsample + s] = j;
-    const float rx = src[j * 3 + 0] - qx;
-    const float ry = src[j * 3 + 1] - qy;
-    const float rz = src[j * 3 + 2] - qz;
-    float* o = pout + s * pc;
-    o[0] = rx;
-    o[1] = ry;
-    o[2] = rz;
-    if (return_polar) {
-      const float pi = (float)M_PI;
-      const float s2 = rx * rx + ry * ry + rz * rz;
-      const bool zero = s2 == 0.0f;
-      const float rho = zero ? 0.0f : sqrtf(s2);
-      const float u = fminf(fmaxf(rz / (zero ? 1.0f : rho), -1.0f), 1.0f);
-      float th;
-      if (fabsf(u) >= 1.0f) {
-        th = u > 0.0f ? 0.0f : pi;
-      } else {
-        th = acosf(u);
+  // the selection: slots[0 .. min(count, nsample)) get the first in-radius
+  // valid points in index order
+  int count = 0;
+  for (int base = 0; base < nv; base += kStage) {
+    if (!__syncthreads_or(live && count < nsample)) break;  // the stage is free
+    const int len = min(kStage, nv - base);
+    for (int t = threadIdx.x; t < len; t += kFeatWarps * 32) {
+      const float* p = src + (size_t)(base + t) * 3;
+      px[t] = p[0];
+      py[t] = p[1];
+      pz[t] = p[2];
+    }
+    __syncthreads();
+    if (!live) continue;
+    // four ballots of 32 a step, independent of each other; hits past the
+    // S-th of a step are counted but never written
+    for (int t0 = 0; t0 < len && count < nsample; t0 += 4 * 32) {
+      unsigned mask[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int t = t0 + 32 * u + lane;
+        bool hit = false;
+        if (t < len) {
+          const float dx = px[t] - qx;
+          const float dy = py[t] - qy;
+          const float dz = pz[t] - qz;
+          hit = dx * dx + dy * dy + dz * dz <= r2;
+        }
+        mask[u] = __ballot_sync(0xffffffffu, hit);
       }
-      const bool xy0 = (rx == 0.0f) && (ry == 0.0f);
-      o[3] = rho;
-      o[4] = (zero ? 0.0f : th) / pi;
-      o[5] = atan2f(ry, xy0 ? 1.0f : rx) / (2.0f * pi) + 0.5f;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (mask[u] == 0u) continue;  // uniform over the warp; most ballots of a small ball
+        const int slot = count + __popc(mask[u] & ((1u << lane) - 1u));
+        if ((mask[u] >> lane & 1u) && slot < nsample) slots[slot] = base + t0 + 32 * u + lane;
+        count += __popc(mask[u]);
+      }
     }
   }
+  if (!live) return;
+  __syncwarp();
+  const int filled = min(count, nsample);
+  const int first = count == 0 ? 0 : slots[0];
+  // the whole valid cloud is still staged: read the coordinates there
+  const bool staged = nv >= 1 && nv <= kStage;
 
+  // pos: each lane one slot of a round of 32, staged, then the round's span
+  const int pc = return_polar ? 6 : 3;
+  float* pout = pos + query * nsample * pc;
+  float* stage = pstage[warp];
+  const int pad = knn_topk::span_pad(pout);  // the same for every round: 32 * pc = 0 mod 4
+  for (int s0 = 0; s0 < nsample; s0 += 32) {
+    const int s = s0 + lane;
+    if (s < nsample) {
+      const int j = s < filled ? slots[s] : first;
+      if (sel_out != nullptr) sel_out[query * nsample + s] = j;
+      const float rx = (staged ? px[j] : src[j * 3 + 0]) - qx;
+      const float ry = (staged ? py[j] : src[j * 3 + 1]) - qy;
+      const float rz = (staged ? pz[j] : src[j * 3 + 2]) - qz;
+      float* o = stage + pad + lane * pc;
+      o[0] = rx;
+      o[1] = ry;
+      o[2] = rz;
+      if (return_polar) {
+        const float pi = (float)M_PI;
+        const float s2 = rx * rx + ry * ry + rz * rz;
+        const bool zero = s2 == 0.0f;
+        const float rho = zero ? 0.0f : sqrtf(s2);
+        const float u = fminf(fmaxf(rz / (zero ? 1.0f : rho), -1.0f), 1.0f);
+        float th;
+        if (fabsf(u) >= 1.0f) {
+          th = u > 0.0f ? 0.0f : pi;
+        } else {
+          th = acosf(u);
+        }
+        const bool xy0 = (rx == 0.0f) && (ry == 0.0f);
+        o[3] = rho;
+        o[4] = (zero ? 0.0f : th) / pi;
+        o[5] = atan2f(ry, xy0 ? 1.0f : rx) / (2.0f * pi) + 0.5f;
+      }
+    }
+    __syncwarp();
+    knn_topk::store_span(pout + s0 * pc, stage, min(32, nsample - s0) * pc, lane, 32);
+    __syncwarp();
+  }
+
+  // feat: channels 3.. of tcat's selected rows, the [S, fc] span in order
   const int fc = c - 3;
-  const float* tsrc = tcat + (size_t)b * n * c;
-  float* fout = feat + (size_t)query * nsample * fc;
-  for (int e = lane; e < nsample * fc; e += 32) {
+  if (fc == 0) return;
+  const float* trow = tcat + (size_t)b * n * c + 3;
+  float* fout = feat + query * nsample * fc;
+  const int total = nsample * fc;
+  const int head = min((4 - knn_topk::span_pad(fout)) & 3, total);
+  const int body = (total - head) >> 2;
+  // the head and the tail, at most 3 elements each
+  auto put = [&](int e) {
     const int s = e / fc;
-    const int ch = e - s * fc;
-    const int j = s < filled ? slots[s] : first;
-    fout[e] = tsrc[(size_t)j * c + 3 + ch];
+    fout[e] = trow[(size_t)(s < filled ? slots[s] : first) * c + e - s * fc];
+  };
+  if (lane < head) put(lane);
+  if (head + 4 * body + lane < total) put(head + 4 * body + lane);
+  // the body: lane l's float4 v = l, l + 32, ...; (s, ch) its first element
+  const int step_s = 128 / fc, step_ch = 128 - step_s * fc;
+  int s = (head + 4 * lane) / fc;
+  int ch = head + 4 * lane - s * fc;
+  float4* f4 = reinterpret_cast<float4*>(fout + head);
+  for (int v = lane; v < body; v += 32) {
+    float val[4];
+    int ss = s, cc = ch;
+    int j = ss < filled ? slots[ss] : first;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      val[u] = trow[(size_t)j * c + cc];
+      if (++cc == fc) {
+        cc = 0;
+        ++ss;
+        if (u < 3) j = ss < filled ? slots[ss] : first;
+      }
+    }
+    f4[v] = make_float4(val[0], val[1], val[2], val[3]);
+    s += step_s;
+    ch += step_ch;
+    if (ch >= fc) {
+      ch -= fc;
+      ++s;
+    }
   }
 }
 
@@ -449,10 +553,9 @@ extern "C" int repsurf_ball_feature(const float* xyz, const float* new_xyz,
                                     float* pos, float* feat, int* sel,
                                     cudaStream_t stream) {
   if (nsample > kMaxS || c < 3) return (int)cudaErrorInvalidValue;
-  const int blocks = (batch * m + kWarps - 1) / kWarps;
-  ball_feature_kernel<<<blocks, kWarps * 32, 0, stream>>>(
-      xyz, new_xyz, tcat, valid, batch, n, m, c, nsample, r2, return_polar,
-      pos, feat, sel);
+  const dim3 grid((m + kFeatWarps - 1) / kFeatWarps, batch);
+  ball_feature_kernel<<<grid, kFeatWarps * 32, 0, stream>>>(
+      xyz, new_xyz, tcat, valid, n, m, c, nsample, r2, return_polar, pos, feat, sel);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
 // The k-best list shared by the kNN kernels (knn.cu, knn_window.cu,
-// umbrella.cu), and the merges that split one query's scan over lanes.
+// umbrella.cu), the merges that split one query's scan over lanes, and the
+// staged span store of the umbrella and ball-feature kernels.
 //
 // One thread keeps its K best (squared distance, point index) pairs sorted
 // ascending by the pair: a smaller distance first, and the lower index first
@@ -21,6 +22,7 @@
 #pragma once
 
 #include <math.h>
+#include <stdint.h>
 
 #include <type_traits>
 
@@ -74,6 +76,24 @@ struct List {
       d[s] = dd;
       i[s] = ii;
     }
+  }
+
+  // insert() for a scan in index order, K <= 32: ii exceeds every index in
+  // the list, so (dd, ii) goes after every entry of distance <= dd, and
+  // each slot takes its new value from comparisons on the distance alone,
+  // all made on the old list (no chain of compare-and-swaps)
+  __device__ __forceinline__ void insert_in_order(float dd, int ii) {
+    static_assert(K <= 32, "insert_in_order keeps the list in registers");
+    bool lt[K];
+#pragma unroll
+    for (int s = 0; s < K; ++s) lt[s] = dd < d[s];
+#pragma unroll
+    for (int s = K - 1; s > 0; --s) {
+      d[s] = lt[s - 1] ? d[s - 1] : (lt[s] ? dd : d[s]);
+      i[s] = lt[s - 1] ? i[s - 1] : (lt[s] ? ii : i[s]);
+    }
+    d[0] = lt[0] ? dd : d[0];
+    i[0] = lt[0] ? ii : i[0];
   }
 
   // the first k entries (see store_slot)
@@ -182,6 +202,30 @@ __device__ __forceinline__ float dist2(float px, float py, float pz, float qx,
                                        float qy, float qz) {
   const float dx = px - qx, dy = py - qy, dz = pz - qz;
   return dx * dx + dy * dy + dz * dz;
+}
+
+// Staged output spans (the umbrella tq and ball-feature kernels): a span of
+// `total` floats at dst is first written to shared memory as stage[pad + e]
+// for element e, pad = span_pad(dst), so that a 16-byte boundary of dst
+// falls on one of the stage; then `count` threads (tid = 0 .. count-1) write
+// it with 16-byte stores from consecutive threads, between a scalar head
+// (up to dst's first 16-byte boundary) and a scalar tail.  stage itself is
+// 16-byte aligned.
+__device__ __forceinline__ int span_pad(const float* dst) {
+  return (int)((reinterpret_cast<uintptr_t>(dst) >> 2) & 3);
+}
+
+__device__ __forceinline__ void store_span(float* __restrict__ dst, const float* stage,
+                                           int total, int tid, int count) {
+  const int pad = span_pad(dst);
+  const int head = min((4 - pad) & 3, total);
+  if (tid < head) dst[tid] = stage[pad + tid];
+  const int body = (total - head) >> 2;
+  const float4* s4 = reinterpret_cast<const float4*>(stage + pad + head);
+  float4* d4 = reinterpret_cast<float4*>(dst + head);
+  for (int v = tid; v < body; v += count) d4[v] = s4[v];
+  const int e = head + 4 * body + tid;
+  if (e < total) dst[e] = stage[pad + e];
 }
 
 // Call launch(std::integral_constant<int, K>{}) with a compile-time list

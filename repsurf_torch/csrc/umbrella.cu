@@ -1,8 +1,8 @@
 // Fused umbrella geometry: three kernels that compute one function, each
 // the counterpart of one Pallas kernel of repsurf_tpu/ops/pallas/umbrella.py.
 //
-//   umbrella_tq_kernel    replaces _umbrella_tq_kernel (:302), one thread
-//                         per query;
+//   umbrella_tq_kernel    replaces _umbrella_tq_kernel (:302), an aligned
+//                         group of kTqLanes = 4 lanes per query;
 //   umbrella_full_kernel  replaces _umbrella_kernel (:88), one warp per
 //                         query;
 //   umbrella_slab_kernel  replaces _umbrella_slab_kernel (:606), x-sorted
@@ -15,26 +15,44 @@
 // G*C floats per query.  The slab kernel tests 384 candidates per query and
 // leaves the queries its window cannot vouch for to the wrapper's re-solve.
 // What the designs do about it:
-//   * tq: the candidates are tiled through shared memory, so the cloud
-//     leaves device memory once per block of 128 queries; each thread keeps
-//     its k best in registers.  Many queries per sample fill the card.
+//   * tq: 32 queries a block, L = kTqLanes = 4 lanes each.  The candidates
+//     are tiled through shared memory as float4, so the cloud leaves L2
+//     once per block; each lane scans every L-th candidate
+//     of a tile into its own k-best list in registers, screening 32
+//     candidates at a time against the group's smallest k-th distance and
+//     inserting the few that pass afterwards, in index order (a warp whose
+//     lanes insert at different candidates would otherwise take the
+//     insertion path at nearly every candidate), and the group merges its
+//     lists in k shuffle rounds (merge_lanes, knn_topk.cuh).  The fan
+//     geometry is split over the group too: lane s takes the neighbours and
+//     fans g = s (mod L); the azimuths, the sorted neighbours and the merged
+//     indices meet in a per-query row of shared memory; the sign comes from
+//     fan 0's lane by a shuffle and the first good fan from a group minimum.
+//     Each query's G*C features land in a shared-memory stage, and the block
+//     writes its queries' contiguous span with 16-byte stores from
+//     consecutive threads.  Four lanes were the fastest split measured at
+//     every path shape (the cls eval batch, R2's passes): fewer leave the
+//     card under-filled and the epilogue serial, more keep more part-filled
+//     lists and merge longer.
 //   * full: the TPU kernel spreads one query's scan across lanes; here one
 //     warp takes one query, each lane scans every 32nd candidate of a shared
 //     tile with its own k-best list, and the warp merges the 32 lists in k
-//     rounds of a shuffle arg-min on (d^2, index).  32 lanes per query keep
-//     the card busy when there are few queries.
+//     rounds of a shuffle arg-min on (d^2, index); lane 0 runs the
+//     one-thread epilogue.
 //   * slab: one block per (sample, slab), the 3-slab window staged once in
 //     shared memory, one thread per query.
-// All three run the same fan geometry (fan_features below, the counterpart
-// of _fan_geometry_pack / _fan_geometry_pack_tq) in registers: nothing but
-// the features (and the slab's two guard values) is written.
+// Every form builds its fans with the same two functions (make_fan and
+// put_fan below, the counterparts of _fan_geometry_pack /
+// _fan_geometry_pack_tq), so the kernels stay bit-equal to one another.
+// repsurf_umbrella_tq_scan_floor is the tq launch without the fan geometry
+// and the feature stores: the scan and merge alone, for the measurement.
 //
 // The list length is a template parameter KMAX (9 or 17) and k a runtime
 // value k <= KMAX: every index into the per-thread arrays must be a
 // compile-time constant for them to stay in registers, and two lengths keep
 // the models' k = 9 tight while k up to 17 (G <= 16, the JAX auto bound)
 // still works.  Style, rotation and the plane constant are runtime flags,
-// uniform over a launch, so each kernel has two instantiations, not sixteen.
+// uniform over a launch.
 //
 // Per query q (semantics identical to the plain version in
 // ops/kernels/umbrella.py, the composition of geometry/umbrella.py):
@@ -69,8 +87,10 @@ namespace {
 
 using knn_topk::kBig;
 
-constexpr int kThreads = 128;     // tq: queries per block
-constexpr int kTile = 256;        // tq, full: candidates per shared tile
+constexpr int kTqQueries = 32;    // tq: queries per block
+constexpr int kTqLanes = 4;       // tq: lanes per query
+constexpr int kTqTile = 512;      // tq: candidates per shared tile
+constexpr int kTile = 256;        // full: candidates per shared tile
 constexpr int kFullWarps = 8;     // full: queries (warps) per block
 constexpr int kSlab = 128;        // slab: points per slab, queries per block
 constexpr int kWindow = 3 * kSlab;
@@ -96,19 +116,32 @@ __device__ __forceinline__ float azimuth(float x, float y) {
   return atan2f(y, xy0 ? 1.0f : x) / two_pi + 0.5f;
 }
 
+// the sorting key of a neighbour relative to q
+__device__ __forceinline__ float fan_azimuth(float x, float y, float z, int rotate) {
+  if (rotate) return azimuth(kR00 * x + kR10 * y + kR20 * z, kR01 * x + kR11 * y + kR21 * z);
+  return azimuth(x, y);
+}
+
 struct Fan {
   float cx, cy, cz, ux, uy, uz, pv;
   bool deg;
 };
 
+// the cross product of a and b and its squared norm (0: a degenerate fan)
+__device__ __forceinline__ float cross(float ax, float ay, float az, float bx, float by,
+                                       float bz, float& nx, float& ny, float& nz) {
+  nx = ay * bz - az * by;
+  ny = az * bx - ax * bz;
+  nz = ax * by - ay * bx;
+  return nx * nx + ny * ny + nz * nz;
+}
+
 // triangle (origin, a, b): signed unit normal, centroid, plane constant
 __device__ __forceinline__ Fan make_fan(float ax, float ay, float az, float bx,
                                         float by, float bz, float sign) {
   Fan f;
-  const float nx = ay * bz - az * by;
-  const float ny = az * bx - ax * bz;
-  const float nz = ax * by - ay * bx;
-  const float s2 = nx * nx + ny * ny + nz * nz;
+  float nx, ny, nz;
+  const float s2 = cross(ax, ay, az, bx, by, bz, nx, ny, nz);
   f.deg = s2 == 0.0f;
   const float norm = sqrtf(f.deg ? 1.0f : s2);
   f.ux = (f.deg ? 0.0f : nx / norm) * sign;
@@ -121,8 +154,33 @@ __device__ __forceinline__ Fan make_fan(float ax, float ay, float az, float bx,
   return f;
 }
 
-// Fan geometry from the neighbours' coordinates relative to q, in kNN
-// order (gx[g], g < o.g), into one point's G*C outputs.
+// One fan's C channels at p: the polar channels from the fan's own
+// centroid (xyz2sphere), the rest from r (the fan itself, or the first good
+// fan when it is degenerate).
+__device__ __forceinline__ void put_fan(const Fan& f, const Fan& r, const Opts& o, float* p) {
+  const float pi = (float)M_PI;
+  const float s2c = f.cx * f.cx + f.cy * f.cy + f.cz * f.cz;
+  const bool zero = s2c == 0.0f;
+  const float rho = zero ? 0.0f : sqrtf(s2c);
+  const float u = fminf(fmaxf(f.cz / (zero ? 1.0f : rho), -1.0f), 1.0f);
+  const float th = fabsf(u) >= 1.0f ? (u > 0.0f ? 0.0f : pi) : acosf(u);
+  p[o.o_center + 0] = r.cx;
+  p[o.o_center + 1] = r.cy;
+  p[o.o_center + 2] = r.cz;
+  p[o.o_polar + 0] = rho;
+  p[o.o_polar + 1] = (zero ? 0.0f : th) / pi;
+  p[o.o_polar + 2] = azimuth(f.cx, f.cy);
+  p[o.o_normal + 0] = r.ux;
+  p[o.o_normal + 1] = r.uy;
+  p[o.o_normal + 2] = r.uz;
+  if (o.o_pos >= 0) p[o.o_pos] = r.pv;
+}
+
+__device__ __forceinline__ int successor(int g, int G) { return g + 1 < G ? g + 1 : 0; }
+
+// The one-thread epilogue: fan geometry from the neighbours' coordinates
+// relative to q, in kNN order (gx[g], g < o.g), into one point's G*C
+// outputs.
 template <int KMAX>
 __device__ __forceinline__ void fan_features(const float (&gx)[KMAX],
                                              const float (&gy)[KMAX],
@@ -132,14 +190,7 @@ __device__ __forceinline__ void fan_features(const float (&gx)[KMAX],
   const int G = o.g;
   float phi[KMAX];
 #pragma unroll
-  for (int g = 0; g < KMAX; ++g) {
-    float x = gx[g], y = gy[g];
-    if (o.rotate) {
-      x = kR00 * gx[g] + kR10 * gy[g] + kR20 * gz[g];
-      y = kR01 * gx[g] + kR11 * gy[g] + kR21 * gz[g];
-    }
-    phi[g] = azimuth(x, y);
-  }
+  for (int g = 0; g < KMAX; ++g) phi[g] = fan_azimuth(gx[g], gy[g], gz[g], o.rotate);
   // stable ascending rank, then the coordinates in sorted order
   int rank[KMAX];
 #pragma unroll
@@ -166,54 +217,40 @@ __device__ __forceinline__ void fan_features(const float (&gx)[KMAX],
     }
   }
 // fan g pairs sorted g with its successor, sorted (g + 1) mod G
-#define UMB_FAN(g, sign)                                                   \
-  make_fan(sx[g], sy[g], sz[g], (g) + 1 < G ? sx[((g) + 1) % KMAX] : sx[0], \
-           (g) + 1 < G ? sy[((g) + 1) % KMAX] : sy[0],                     \
-           (g) + 1 < G ? sz[((g) + 1) % KMAX] : sz[0], sign)
-  const float sign = UMB_FAN(0, 1.0f).ux > 0.0f ? 1.0f : -1.0f;
+#define UMB_B(arr, g) ((g) + 1 < G ? arr[((g) + 1) % KMAX] : arr[0])
+  const float sign =
+      make_fan(sx[0], sy[0], sz[0], UMB_B(sx, 0), UMB_B(sy, 0), UMB_B(sz, 0), 1.0f).ux > 0.0f
+          ? 1.0f
+          : -1.0f;
   // the first good fan (fan 0 when every fan is degenerate)
-  Fan rep = UMB_FAN(0, sign);
-  bool found = false;
+  float ax = sx[0], ay = sy[0], az = sz[0];
+  float bx = UMB_B(sx, 0), by = UMB_B(sy, 0), bz = UMB_B(sz, 0);
 #pragma unroll
   for (int g = KMAX - 1; g >= 0; --g) {
-    if (g < G) {
-      const Fan f = UMB_FAN(g, sign);
-      if (!f.deg || (g == 0 && !found)) {
-        rep = f;
-        found = true;
-      }
+    float nx, ny, nz;
+    if (g < G && cross(sx[g], sy[g], sz[g], UMB_B(sx, g), UMB_B(sy, g), UMB_B(sz, g), nx, ny,
+                       nz) != 0.0f) {
+      ax = sx[g], ay = sy[g], az = sz[g];
+      bx = UMB_B(sx, g), by = UMB_B(sy, g), bz = UMB_B(sz, g);
     }
   }
-  const float pi = (float)M_PI;
+  const Fan rep = make_fan(ax, ay, az, bx, by, bz, sign);
 #pragma unroll
   for (int g = 0; g < KMAX; ++g) {
     if (g >= G) continue;
-    const Fan f = UMB_FAN(g, sign);
-    const Fan r = f.deg ? rep : f;
-    // xyz2sphere of the fan's own (unrepaired) centroid
-    const float s2c = f.cx * f.cx + f.cy * f.cy + f.cz * f.cz;
-    const bool zero = s2c == 0.0f;
-    const float rho = zero ? 0.0f : sqrtf(s2c);
-    const float u = fminf(fmaxf(f.cz / (zero ? 1.0f : rho), -1.0f), 1.0f);
-    const float th = fabsf(u) >= 1.0f ? (u > 0.0f ? 0.0f : pi) : acosf(u);
-    float* p = out + g * o.c;
-    p[o.o_center + 0] = r.cx;
-    p[o.o_center + 1] = r.cy;
-    p[o.o_center + 2] = r.cz;
-    p[o.o_polar + 0] = rho;
-    p[o.o_polar + 1] = (zero ? 0.0f : th) / pi;
-    p[o.o_polar + 2] = azimuth(f.cx, f.cy);
-    p[o.o_normal + 0] = r.ux;
-    p[o.o_normal + 1] = r.uy;
-    p[o.o_normal + 2] = r.uz;
-    if (o.o_pos >= 0) p[o.o_pos] = r.pv;
+    const Fan f = make_fan(sx[g], sy[g], sz[g], UMB_B(sx, g), UMB_B(sy, g), UMB_B(sz, g), sign);
+    if (f.deg) {
+      put_fan(f, rep, o, out + g * o.c);
+    } else {
+      put_fan(f, f, o, out + g * o.c);
+    }
   }
-#undef UMB_FAN
+#undef UMB_B
 }
 
 // From a finished k-best list of (d^2, index) to the point's features:
 // drop column 0 when skipping, take the fan neighbours relative to q from
-// src [N, 3] (a missing slot: point 0), run the fan geometry.
+// src [N, 3] (a missing slot: point 0), run the one-thread epilogue.
 template <int KMAX>
 __device__ __forceinline__ void emit(knn_topk::List<KMAX>& best,
                                      const float* __restrict__ src, float qx,
@@ -242,44 +279,220 @@ __device__ __forceinline__ void emit(knn_topk::List<KMAX>& best,
   fan_features<KMAX>(gx, gy, gz, o, out);
 }
 
-template <int KMAX>
-__global__ void __launch_bounds__(kThreads)
+// The group epilogue of L lanes: lane `sub` takes the neighbours and the
+// fans g = sub (mod L).  nb[0 .. G) are the query's neighbour indices in
+// kNN order (self column already dropped); phi, rx, ry, rz the query's
+// shared row (G floats each); out its G*C outputs.  Called by every lane of
+// the warp together (the shuffles name the whole warp).
+template <int L>
+__device__ __forceinline__ void lane_fan_features(const int* nb, const float* __restrict__ src,
+                                                  float qx, float qy, float qz, const Opts& o,
+                                                  float* phi, float* rx, float* ry, float* rz,
+                                                  int sub, float* out) {
+  constexpr int F = (kMaxFans + L - 1) / L;  // fans a lane at most
+  const int G = o.g;
+  float gx[F], gy[F], gz[F], ph[F];
+  // own neighbours, relative to q, and their azimuths into the shared row
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    const int g = sub + L * f;
+    gx[f] = gy[f] = gz[f] = ph[f] = 0.0f;
+    if (g < G) {
+      const int j = nb[g];
+      gx[f] = src[j * 3 + 0] - qx;
+      gy[f] = src[j * 3 + 1] - qy;
+      gz[f] = src[j * 3 + 2] - qz;
+      ph[f] = fan_azimuth(gx[f], gy[f], gz[f], o.rotate);
+      phi[g] = ph[f];
+    }
+  }
+  __syncwarp();
+  // stable ascending rank among the query's G azimuths; each own neighbour
+  // to its sorted place in the row
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    const int g = sub + L * f;
+    if (g < G) {
+      int r = 0;
+      for (int j = 0; j < G; ++j) {
+        const float pj = phi[j];
+        r += (pj < ph[f]) || (pj == ph[f] && j < g);
+      }
+      rx[r] = gx[f];
+      ry[r] = gy[f];
+      rz[r] = gz[f];
+    }
+  }
+  __syncwarp();
+  // the sign, from fan 0 on the group's first lane
+  const int lane = threadIdx.x & 31;
+  const int lead = lane & ~(L - 1);
+  float sign = 1.0f;
+  if (sub == 0) {
+    const int h = successor(0, G);
+    sign = make_fan(rx[0], ry[0], rz[0], rx[h], ry[h], rz[h], 1.0f).ux > 0.0f ? 1.0f : -1.0f;
+  }
+  sign = __shfl_sync(knn_topk::kFullMask, sign, lead);
+  // the first good fan: the lowest non-degenerate fan over the group
+  int first = G;
+#pragma unroll
+  for (int f = F - 1; f >= 0; --f) {
+    const int g = sub + L * f;
+    float nx, ny, nz;
+    if (g < G) {
+      const int h = successor(g, G);
+      if (cross(rx[g], ry[g], rz[g], rx[h], ry[h], rz[h], nx, ny, nz) != 0.0f) first = g;
+    }
+  }
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1)
+    first = min(first, __shfl_xor_sync(knn_topk::kFullMask, first, off));
+  const int rg = first == G ? 0 : first;
+  // own fans; a degenerate one takes the first good fan, built from the row
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    const int g = sub + L * f;
+    if (g < G) {
+      const int h = successor(g, G);
+      const Fan fan = make_fan(rx[g], ry[g], rz[g], rx[h], ry[h], rz[h], sign);
+      if (fan.deg) {
+        const int rh = successor(rg, G);
+        const Fan rep = make_fan(rx[rg], ry[rg], rz[rg], rx[rh], ry[rh], rz[rh], sign);
+        put_fan(fan, rep, o, out + g * o.c);
+      } else {
+        put_fan(fan, fan, o, out + g * o.c);
+      }
+    }
+  }
+}
+
+// The tq kernel's shared memory: the candidate tile, the output stage of
+// the block's 32 queries (3 floats of slack for the span's alignment), and
+// a row per query (the merged indices, the azimuths, the sorted
+// neighbours).  In floats, each part a multiple of 4.
+struct TqLayout {
+  int stage, row;
+
+  __host__ __device__ static TqLayout of(const Opts& o, bool scan_only) {
+    TqLayout t;
+    t.stage = scan_only ? 0 : (kTqQueries * o.g * o.c + 3 + 3) & ~3;
+    t.row = scan_only ? 0 : (o.g + o.skip) + 4 * o.g;
+    return t;
+  }
+  __host__ __device__ size_t bytes() const {
+    return sizeof(float) * (4 * kTqTile + stage + ((kTqQueries * row + 3) & ~3));
+  }
+};
+
+template <int KMAX, bool kFloor>
+__global__ void __launch_bounds__(kTqQueries * kTqLanes)
     umbrella_tq_kernel(const float* __restrict__ xyz,
                        const int* __restrict__ valid, int n, Opts o,
                        float* __restrict__ out) {
-  __shared__ float tx[kTile], ty[kTile], tz[kTile];
+  constexpr int L = kTqLanes;
+  extern __shared__ float4 smem4[];
+  float4* tile = smem4;
+  const TqLayout lay = TqLayout::of(o, kFloor);
+  float* stage = reinterpret_cast<float*>(smem4 + kTqTile);
+  float* rows = stage + lay.stage;
+
   const int b = blockIdx.y;
-  const int q = blockIdx.x * kThreads + threadIdx.x;
+  const int sub = threadIdx.x & (L - 1);
+  const int ql = threadIdx.x / L;
+  const int q0 = blockIdx.x * kTqQueries;
+  const int q = q0 + ql;
   const int nv = valid == nullptr ? n : valid[b];
+  const int k = o.g + o.skip;
   const float* src = xyz + (size_t)b * n * 3;
+  // a group past N scans, merges and fans all the same: the shuffles need
+  // the whole warp, the barriers the whole block; only its stores are cut
   const bool live = q < n;
   const float qx = live ? src[q * 3 + 0] : 0.0f;
   const float qy = live ? src[q * 3 + 1] : 0.0f;
   const float qz = live ? src[q * 3 + 2] : 0.0f;
 
+  // each lane: every L-th candidate, in index order, into its own k best.
+  // A chunk of 32 of the lane's candidates is screened against an upper
+  // bound on the query's k-th distance, taken at the chunk's start, into a
+  // bit mask; the marked ones are then inserted in index order, each
+  // against the lane's own current k-th.  A warp so takes the insertion
+  // path once per marked candidate of its busiest lane, not once per
+  // candidate that any lane inserts.  The bound is the group's least k-th
+  // (min over its lanes of each list's end): a candidate above it cannot
+  // reach the merged k best; one equal to it may, so it is kept.
   knn_topk::List<KMAX> best;
   best.reset();
-  for (int base = 0; base < n; base += kTile) {
+  for (int base = 0; base < n; base += kTqTile) {
     __syncthreads();
-    for (int t = threadIdx.x; t < kTile && base + t < n; t += kThreads) {
-      const int j = base + t;
-      tx[t] = src[j * 3 + 0];
-      ty[t] = src[j * 3 + 1];
-      tz[t] = src[j * 3 + 2];
+    for (int t = threadIdx.x; t < kTqTile && base + t < n; t += kTqQueries * L) {
+      const float* p = src + (size_t)(base + t) * 3;
+      tile[t] = make_float4(p[0], p[1], p[2], 0.0f);
     }
     __syncthreads();
-    const int len = min(kTile, n - base);
-    for (int t = 0; t < len; ++t) {
-      const int j = base + t;
-      float d2 = knn_topk::dist2(tx[t], ty[t], tz[t], qx, qy, qz);
-      if (j >= nv) d2 = kBig;
-      // candidates arrive in index order: a distance equal to the current
-      // worst never enters, so the test on the distance alone suffices
-      if (d2 < best.worst()) best.insert(d2, j);
+    const int len = min(kTqTile, n - base);
+    const int lv = min(len, nv - base);  // the tile's valid candidates; the rest sit at 1e10
+    for (int t0 = 0; t0 < len; t0 += 32 * L) {  // the same trip count on every lane
+      float w = best.worst();
+#pragma unroll
+      for (int off = L / 2; off > 0; off >>= 1)
+        w = fminf(w, __shfl_xor_sync(knn_topk::kFullMask, w, off));
+      unsigned marked = 0;
+      const float4* tp = tile + t0 + sub;
+      if (t0 + 32 * L <= lv) {  // a whole chunk of valid candidates
+#pragma unroll
+        for (int u = 0; u < 32; ++u) {
+          const float4 p = tp[u * L];
+          if (knn_topk::dist2(p.x, p.y, p.z, qx, qy, qz) <= w) marked |= 1u << u;
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < 32; ++u) {
+          const int t = t0 + sub + u * L;
+          if (t < len) {
+            const float4 p = tp[u * L];
+            const float d2 = t < lv ? knn_topk::dist2(p.x, p.y, p.z, qx, qy, qz) : kBig;
+            if (d2 <= w) marked |= 1u << u;
+          }
+        }
+      }
+      while (marked) {
+        const int u = __ffs(marked) - 1;
+        marked &= marked - 1;
+        const int t = t0 + sub + u * L;
+        const float4 p = tp[u * L];
+        const float d2 = t < lv ? knn_topk::dist2(p.x, p.y, p.z, qx, qy, qz) : kBig;
+        // index order: a distance equal to the current worst never enters
+        if (d2 < best.worst()) best.insert_in_order(d2, base + t);
+      }
     }
   }
-  if (!live) return;
-  emit<KMAX>(best, src, qx, qy, qz, o, out + ((size_t)b * n + q) * o.g * o.c);
+
+  if constexpr (kFloor) {
+    // the scan floor: the k best distances summed, so nothing is elided
+    float acc = 0.0f;
+    knn_topk::merge_lanes<L>(best, k, [&](int, float d, int) { acc += d; });
+    if (live && sub == 0) out[(size_t)b * n + q] = acc;
+    return;
+  } else {
+    const int gc = o.g * o.c;
+    float* dst = out + ((size_t)b * n + q0) * gc;
+    // stage[pad + e] holds the span's element e (knn_topk::store_span)
+    const int pad = knn_topk::span_pad(dst);
+    float* qout = stage + pad + ql * gc;
+    int* nb = reinterpret_cast<int*>(rows + ql * lay.row);
+    float* phi = rows + ql * lay.row + k;
+    // the merged (d^2, index) pairs reach every lane of the group; lane
+    // r mod L keeps pair r's index (a missing slot: point 0) in the row
+    knn_topk::merge_lanes<L>(best, k, [&](int r, float d, int i) {
+      if ((r & (L - 1)) == sub) nb[r] = d >= kBig ? 0 : i;
+    });
+    __syncwarp();
+    lane_fan_features<L>(nb + o.skip, src, qx, qy, qz, o, phi, phi + o.g, phi + 2 * o.g,
+                         phi + 3 * o.g, sub, qout);
+    __syncthreads();
+    knn_topk::store_span(dst, stage, min(kTqQueries, n - q0) * gc, threadIdx.x,
+                         kTqQueries * L);
+  }
 }
 
 template <int KMAX>
@@ -400,6 +613,21 @@ int dispatch(int k, F launch) {
   return launch(std::integral_constant<int, 17>{});
 }
 
+template <bool kFloor>
+int tq_entry(const float* xyz, const int* valid, int batch, int n, int k, int skip, int rotate,
+             int dist, int seg, float* out, cudaStream_t stream) {
+  Opts o;
+  if (!make_opts(k, skip, rotate, dist, seg, &o) || o.g > kMaxFans)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + kTqQueries - 1) / kTqQueries, batch);
+  const size_t smem = TqLayout::of(o, kFloor).bytes();  // under 48 KB: G <= 16, C <= 10
+  return dispatch(k, [&](auto kc) {
+    umbrella_tq_kernel<decltype(kc)::value, kFloor>
+        <<<grid, kTqQueries * kTqLanes, smem, stream>>>(xyz, valid, n, o, out);
+    return (int)cudaGetLastError();
+  });
+}
+
 }  // namespace
 
 // All three: xyz [B, N, 3] f32, valid [B] i32 or null, k the kNN size
@@ -413,15 +641,16 @@ extern "C" int repsurf_umbrella_tq(const float* xyz, const int* valid,
                                    int batch, int n, int k, int skip,
                                    int rotate, int dist, int seg, float* out,
                                    cudaStream_t stream) {
-  Opts o;
-  if (!make_opts(k, skip, rotate, dist, seg, &o) || o.g > kMaxFans)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + kThreads - 1) / kThreads, batch);
-  return dispatch(k, [&](auto kc) {
-    umbrella_tq_kernel<decltype(kc)::value>
-        <<<grid, kThreads, 0, stream>>>(xyz, valid, n, o, out);
-    return (int)cudaGetLastError();
-  });
+  return tq_entry<false>(xyz, valid, batch, n, k, skip, rotate, dist, seg, out, stream);
+}
+
+// The same launch without the fan geometry and the feature stores: each
+// query's k best squared distances summed into out [B, N] (a measurement of
+// the scan and the merge, not a feature).
+extern "C" int repsurf_umbrella_tq_scan_floor(const float* xyz, const int* valid, int batch,
+                                              int n, int k, int skip, int rotate, int dist,
+                                              int seg, float* out, cudaStream_t stream) {
+  return tq_entry<true>(xyz, valid, batch, n, k, skip, rotate, dist, seg, out, stream);
 }
 
 // G * C <= 128

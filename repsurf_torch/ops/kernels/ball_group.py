@@ -15,7 +15,8 @@ Each wrapper runs the plain version for a tensor on the CPU, where autograd
 differentiates it, and on a CUDA device a ``torch.autograd.Function`` whose
 forward is the kernel and whose backward is the scatter kernel.  The
 forward saves the selection it made ([B, M, S] int32; 4 MB at the first SA
-stage) rather than search again in the backward.
+stage) rather than search again in the backward;
+``ball_group_feature_selection`` returns it beside pos and feat.
 
 Gradients, as the JAX kernel route defines them (``(None, None, dtcat,
 None)``): the grouped channels get the scatter-add of their cotangent;
@@ -44,9 +45,16 @@ def _concat(tensors):
     return torch.cat(live, dim=-1) if len(live) > 1 else live[0]
 
 
+@functools.lru_cache(maxsize=64)
 def _radius2(radius):
     """float32(radius**2), the radius test's bound, as a Python float."""
     return float(torch.tensor(float(radius) ** 2, dtype=torch.float32))
+
+
+@functools.lru_cache(maxsize=1)
+def _max_nsample():
+    """The kernels' largest group size S (csrc/ball_group.cu kMaxS)."""
+    return build.library().repsurf_ball_feature_max_nsample()
 
 
 def ball_group_feature_plain(radius, nsample, xyz, new_xyz, tensors, valid=None,
@@ -156,7 +164,7 @@ def _cuda_args(nsample, xyz, new_xyz, tcat, valid, min_c):
     if new_xyz.device != xyz.device:
         raise ValueError(f"new_xyz on {new_xyz.device}, xyz on {xyz.device}")
     tcat = cuda_f32(tcat, "tensors", (b, n, None))
-    max_s = build.library().repsurf_ball_feature_max_nsample()
+    max_s = _max_nsample()
     if tcat.shape[-1] < min_c or not 0 < nsample <= max_s:
         raise ValueError(
             f"ball kernel needs C >= {min_c} and 0 < nsample <= {max_s}, "
@@ -165,31 +173,39 @@ def _cuda_args(nsample, xyz, new_xyz, tcat, valid, min_c):
     return xyz, new_xyz, tcat, counts_i32(valid, b, xyz.device)
 
 
+def _feature_launch(tcat, xyz, new_xyz, valid, radius, nsample, return_polar, keep_sel):
+    """One launch of the feature kernel on checked CUDA inputs: (pos, feat,
+    sel [B, M, S] int32 when ``keep_sel``, else None)."""
+    b, n, c = tcat.shape
+    m = new_xyz.shape[1]
+    dev = tcat.device
+    pos = torch.empty((b, m, nsample, 6 if return_polar else 3),
+                      dtype=torch.float32, device=dev)
+    feat = torch.empty((b, m, nsample, c - 3), dtype=torch.float32, device=dev)
+    sel = torch.empty((b, m, nsample), dtype=torch.int32, device=dev) if keep_sel else None
+    status = build.library().repsurf_ball_feature(
+        ptr(xyz), ptr(new_xyz), ptr(tcat), ptr(valid), b, n, m, c, nsample,
+        _radius2(radius), int(return_polar), ptr(pos), ptr(feat), ptr(sel),
+        stream(dev),
+    )
+    check_launch(status, "repsurf_ball_feature")
+    ball_group_feature.launches += 1
+    ball_group_feature.launches_by_channels[c] += 1
+    return pos, feat, sel
+
+
 class _BallFeature(torch.autograd.Function):
     """The feature kernel with the scatter kernel as its backward."""
 
     @staticmethod
     def forward(ctx, tcat, xyz, new_xyz, valid, radius, nsample, return_polar):
-        b, n, c = tcat.shape
-        m = new_xyz.shape[1]
-        dev = tcat.device
-        pos = torch.empty((b, m, nsample, 6 if return_polar else 3),
-                          dtype=torch.float32, device=dev)
-        feat = torch.empty((b, m, nsample, c - 3), dtype=torch.float32, device=dev)
         keep = ctx.needs_input_grad[0]
-        sel = torch.empty((b, m, nsample), dtype=torch.int32, device=dev) if keep else None
-        status = build.library().repsurf_ball_feature(
-            ptr(xyz), ptr(new_xyz), ptr(tcat), ptr(valid), b, n, m, c, nsample,
-            _radius2(radius), int(return_polar), ptr(pos), ptr(feat), ptr(sel),
-            stream(dev),
-        )
-        check_launch(status, "repsurf_ball_feature")
-        ball_group_feature.launches += 1
-        ball_group_feature.launches_by_channels[c] += 1
+        pos, feat, sel = _feature_launch(tcat, xyz, new_xyz, valid, radius, nsample,
+                                         return_polar, keep)
         ctx.mark_non_differentiable(pos)
         if keep:
             ctx.save_for_backward(sel)
-            ctx.n = n
+            ctx.n = tcat.shape[1]
         return pos, feat
 
     @staticmethod
@@ -213,6 +229,23 @@ def ball_group_feature(radius, nsample, xyz, new_xyz, tensors, valid=None,
     xyz, new_xyz, tcat, valid = _cuda_args(nsample, xyz, new_xyz, _concat(tensors),
                                            valid, min_c=3)
     return _BallFeature.apply(tcat, xyz, new_xyz, valid, radius, nsample, return_polar)
+
+
+def ball_group_feature_selection(radius, nsample, xyz, new_xyz, tensors, valid=None,
+                                 return_polar=False):
+    """``ball_group_feature`` with the selection it made, without a graph:
+    (pos, feat, sel [B, M, S] int32).  The kernel and the selection it
+    writes on a CUDA device (what the forward saves for its backward);
+    the plain version and ``ball_query`` on the CPU."""
+    if xyz.device.type == "cpu":
+        pos, feat = ball_group_feature_plain(radius, nsample, xyz, new_xyz, tensors, valid=valid,
+                                             return_polar=return_polar)
+        return pos, feat, ball_query(radius, nsample, xyz, new_xyz, valid=valid)
+    xyz, new_xyz, tcat, valid = _cuda_args(nsample, xyz, new_xyz, _concat(tensors), valid,
+                                           min_c=3)
+    with torch.no_grad():
+        return _feature_launch(tcat.detach(), xyz, new_xyz, valid, radius, nsample,
+                               return_polar, True)
 
 
 ball_group_feature.launches = 0

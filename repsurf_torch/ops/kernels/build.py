@@ -43,6 +43,7 @@ _SIGNATURES = {
     "repsurf_fps_cluster_size": (_I, [_I]),
     "repsurf_fps_round_floor": (_I, [_P, _I, _I, _I, _P, _P]),
     "repsurf_umbrella_tq": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
+    "repsurf_umbrella_tq_scan_floor": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
     "repsurf_umbrella_full": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
     "repsurf_umbrella_slab": (
         _I,

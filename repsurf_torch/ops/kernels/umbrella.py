@@ -6,7 +6,9 @@ their plain PyTorch version.
 with the same arguments, dispatch and refusals.  Three kernels compute one
 function:
 
-  * 'tq' (replaces ``_umbrella_tq_kernel``): one thread per query, G <= 16;
+  * 'tq' (replaces ``_umbrella_tq_kernel``): an aligned group of 4 lanes
+    per query, the kNN scan and the fan geometry split over the group,
+    G <= 16;
   * 'full' (replaces ``_umbrella_kernel``): one warp per query, G*C <= 128;
   * 'slab' (replaces ``_umbrella_slab_kernel``): each sample x-sorted and cut
     into slabs of 128 points, every query searched in the 3-slab window
@@ -147,10 +149,14 @@ def _resolve(feat, bad, xyz, k, drop_self, rotate, return_dist, style, valid):
     return count
 
 
+def _flags(k, drop_self, rotate, return_dist, style):
+    return (k, int(drop_self), int(rotate), int(return_dist), int(style == "seg"))
+
+
 def _launch(impl, xyz, valid, k, drop_self, rotate, return_dist, style):
     b, n = xyz.shape[0], xyz.shape[1]
     g, c = fan_shape(k, drop_self, return_dist)
-    flags = (int(drop_self), int(rotate), int(return_dist), int(style == "seg"))
+    flags = _flags(k, drop_self, rotate, return_dist, style)
     lib = build.library()
     out = torch.empty((b, n, g, c), dtype=torch.float32, device=xyz.device)
     dev = stream(xyz.device)
@@ -158,11 +164,11 @@ def _launch(impl, xyz, valid, k, drop_self, rotate, return_dist, style):
         table = slab_table(xyz, valid)
         kth = torch.empty((b, n), dtype=torch.float32, device=xyz.device)
         margin = torch.empty_like(kth)
-        status = lib.repsurf_umbrella_slab(ptr(table), ptr(xyz), ptr(valid), b, n, k, *flags,
+        status = lib.repsurf_umbrella_slab(ptr(table), ptr(xyz), ptr(valid), b, n, *flags,
                                            ptr(out), ptr(kth), ptr(margin), dev)
     else:
         fn = lib.repsurf_umbrella_tq if impl == "tq" else lib.repsurf_umbrella_full
-        status = fn(ptr(xyz), ptr(valid), b, n, k, *flags, ptr(out), dev)
+        status = fn(ptr(xyz), ptr(valid), b, n, *flags, ptr(out), dev)
     check_launch(status, f"repsurf_umbrella_{impl}")
     umbrella_features_kernel.launches[impl] += 1
     umbrella_features_kernel.launches_by_style[style] += 1
@@ -238,6 +244,23 @@ def umbrella_features_kernel(xyz, k, drop_self=False, rotate=False, return_dist=
     xyz = cuda_f32(xyz, "xyz", (b, n, 3))
     valid = counts_i32(valid, b, xyz.device)
     return _UmbrellaFans.apply(xyz, valid, k, drop_self, rotate, return_dist, style, impl)
+
+
+def umbrella_tq_scan_floor(xyz, k, drop_self=False, rotate=False, return_dist=True,
+                           style="cls", valid=None):
+    """The tq kernel's launch without its fan geometry and feature stores
+    (repsurf_umbrella_tq_scan_floor), on a CUDA device: each query's k best
+    squared distances summed, [B, N].  A measurement of the scan and the
+    merge, the floor under the kernel's time; not counted as a launch."""
+    b, n = xyz.shape[0], xyz.shape[1]
+    xyz = cuda_f32(xyz, "xyz", (b, n, 3))
+    valid = counts_i32(valid, b, xyz.device)
+    out = torch.empty((b, n), dtype=torch.float32, device=xyz.device)
+    status = build.library().repsurf_umbrella_tq_scan_floor(
+        ptr(xyz), ptr(valid), b, n, *_flags(k, drop_self, rotate, return_dist, style), ptr(out),
+        stream(xyz.device))
+    check_launch(status, "repsurf_umbrella_tq_scan_floor")
+    return out
 
 
 umbrella_features_kernel.launches = dict.fromkeys(IMPLS, 0)

@@ -1,0 +1,442 @@
+"""The umbrella tq kernel's lane split and the ball-feature kernel's
+output mapping, replayed step by step on the CPU and held to the plain
+versions (and, at one shape each, to the JAX package's Pallas kernels in
+interpret mode).
+
+The replays follow csrc/umbrella.cu (umbrella_tq_kernel, lane_fan_features)
+and csrc/ball_group.cu (ball_feature_kernel), which run only on the card:
+
+  * umbrella: each of L = 4 lanes scans every L-th candidate into its own
+    k-best list, 32 candidates at a time screened against an upper bound on
+    the query's k-th distance and the marked ones inserted in index order;
+    the group merges the lists in k rounds of an arg-min over the lanes'
+    heads; lane s then takes the neighbours and fans g = s (mod L): the
+    azimuths and the sorted neighbours meet in a shared row, the
+    sign comes from fan 0's lane, the first good fan is the minimum over
+    the lanes of each lane's lowest non-degenerate fan, a degenerate fan
+    takes it, rebuilt from the row.  The per-fan arithmetic is the kernel's
+    (make_fan, put_fan), in torch's float32 ops, and the result must equal
+    the plain composition bit for bit.
+  * ball feature: blocks of 8 queries of one sample, the sample's valid
+    points staged 2,048 at a time, the selection four ballots of 32
+    candidates a step;
+    pos written 32 slots at a time through a stage offset by the span's
+    alignment, feat walked by each lane four elements at a time with its
+    (slot, channel) stepped by 128 elements with a carry; both spans as a
+    scalar head, 16-byte-aligned float4s and a scalar tail.  Every output
+    element must be written once.
+
+Coordinates lie on a 2^-10 grid, so every squared distance and cross
+product is exact and ties are common.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repsurf_torch.geometry.polar import ieee_div
+from repsurf_torch.geometry.umbrella import azimuth_near_ties, fan_azimuth
+from repsurf_torch.ops.gather import index_points
+from repsurf_torch.ops.kernels.ball_group import (
+    ball_group_feature_plain,
+    ball_group_feature_selection,
+)
+from repsurf_torch.ops.kernels.knn import pairwise_dist2
+from repsurf_torch.ops.kernels.umbrella import (
+    fan_shape,
+    umbrella_fan_features_plain,
+    umbrella_features_kernel,
+)
+from repsurf_torch.ops.neighbors import ball_query
+from repsurf_tpu.ops.pallas.ball_group import ball_group_feature_pallas
+from repsurf_tpu.ops.pallas.umbrella import umbrella_features_pallas
+
+torch.set_num_threads(1)
+
+BIG = np.float32(1e10)
+SENTINEL = (0x7F800000 << 32) | 0x7FFFFFFF  # an empty list slot, (inf, INT_MAX)
+UMB_ATOL = 1e-5  # the Pallas atan2/acos are ~2 ulp (as tests/test_torch_umbrella.py)
+NEAR_TIE = 1e-6
+POS_ATOL = 1e-6  # pos: numpy's and torch's acos / atan2 differ by an ulp
+
+
+def _grid(seed, shape):
+    rs = np.random.RandomState(seed)
+    return (np.round((rs.rand(*shape) * 2 - 1) * 1024) / 1024).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _umbrella_cloud():
+    """Three samples of 160 points: distinct grid points; every point twice
+    (zero-length neighbours, so degenerate fans, and tied distances); 4
+    valid points, fewer than k (missing kNN slots take point 0)."""
+    xyz = _grid(70, (3, 160, 3))
+    xyz[1, 80:] = xyz[1, :80]
+    return xyz, np.array([160, 160, 4], np.int32)
+
+
+# --- the umbrella tq kernel --------------------------------------------------
+
+
+TQ_TILE = 512  # umbrella_tq_kernel's candidates per shared tile
+TQ_LANES = 4  # its lanes per query (kTqLanes)
+
+
+def _scan_lists(xyz, valid, lanes, kmax, tile=TQ_TILE):
+    """The kernel's scan: lane s of a query's group takes candidates j = s
+    (mod L) of each tile; per chunk of 32 of them, those within the group's
+    least k-th distance (min over the lanes' list ends, taken at the
+    chunk's start) are marked, then each marked one enters the lane's list
+    (insert_in_order) if it beats the lane's current k-th, in index order.
+    Returns the lists as int64 keys bits(d^2) << 32 | index, a sentinel
+    column appended: [B, N, L, kmax + 1]."""
+    x = _t(xyz)
+    b, n, _ = x.shape
+    d2all = pairwise_dist2(x, x)
+    nv = _t(valid).long()[:, None, None]
+    dl = torch.full((b, n, lanes, kmax), math.inf)
+    il = torch.full((b, n, lanes, kmax), 0x7FFFFFFF, dtype=torch.long)
+    sub = torch.arange(lanes)
+    for base in range(0, n, tile):
+        length = min(tile, n - base)
+        for t0 in range(0, length, 32 * lanes):
+            w = dl[..., -1].amin(-1, keepdim=True)  # the group's least k-th
+            chunk = []
+            for u in range(32):
+                t = t0 + sub + u * lanes
+                j = base + torch.clamp(t, max=length - 1)
+                d2 = torch.where(j[None, None, :] < nv, d2all[..., j], torch.tensor(BIG))
+                chunk.append((d2, j, (t < length)[None, None, :] & (d2 <= w)))
+            for d2, j, marked in chunk:  # index order
+                enter = marked & (d2 < dl[..., -1])
+                lt = d2[..., None] < dl
+                prev = torch.cat([torch.zeros_like(lt[..., :1]), lt[..., :-1]], -1)
+                new_d = torch.where(prev, torch.cat([dl[..., :1], dl[..., :-1]], -1),
+                                    torch.where(lt, d2[..., None], dl))
+                new_i = torch.where(prev, torch.cat([il[..., :1], il[..., :-1]], -1),
+                                    torch.where(lt, j.expand_as(d2)[..., None], il))
+                dl = torch.where(enter[..., None], new_d, dl)
+                il = torch.where(enter[..., None], new_i, il)
+    keys = (dl.view(torch.int32).to(torch.int64) << 32) | il
+    return torch.cat([keys, keys.new_full(keys.shape[:-1] + (1,), SENTINEL)], dim=-1)
+
+
+def _merge(lists, k):
+    """merge_lanes: k rounds of the arg-min over the lanes' heads; every lane
+    whose head is the winner pops it.  [B, N, k] keys."""
+    heads = torch.zeros(lists.shape[:-1], dtype=torch.long)
+    won = []
+    for _ in range(k):
+        cand = torch.gather(lists, -1, heads[..., None])[..., 0]
+        win = cand.amin(dim=-1)
+        won.append(win)
+        heads = torch.clamp(heads + (cand == win[..., None]), max=lists.shape[-1] - 1)
+    return torch.stack(won, dim=-1)
+
+
+def _make_fan(a, b, sign):
+    """The kernel's make_fan on [..., 3] tensors: (centroid, signed unit
+    normal, plane constant, degenerate), op by op."""
+    ax, ay, az = a.unbind(-1)
+    bx, by, bz = b.unbind(-1)
+    nx, ny, nz = ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx
+    s2 = nx * nx + ny * ny + nz * nz
+    deg = s2 == 0.0
+    norm = torch.sqrt(torch.where(deg, torch.ones_like(s2), s2))
+    u = [torch.where(deg, torch.zeros_like(v), v / norm) * sign for v in (nx, ny, nz)]
+    c = [ieee_div(p + q, 3.0) for p, q in ((ax, bx), (ay, by), (az, bz))]
+    pv = ieee_div(u[0] * c[0] + u[1] * c[1] + u[2] * c[2], math.sqrt(3.0))
+    return torch.stack(c, -1), torch.stack(u, -1), pv, deg
+
+
+def _put_fan(c_own, rep, style, return_dist):
+    """The kernel's put_fan: the polar channels from the fan's own centroid,
+    center, normal and constant from ``rep`` = (center, normal, const)."""
+    cx, cy, cz = c_own.unbind(-1)
+    s2 = cx * cx + cy * cy + cz * cz
+    zero = s2 == 0.0
+    rho = torch.where(zero, torch.zeros_like(s2), torch.sqrt(torch.where(zero, 1.0, s2)))
+    u = torch.clamp(cz / torch.where(zero, torch.ones_like(rho), rho), -1.0, 1.0)
+    pole = torch.where(u > 0.0, 0.0, math.pi).to(u.dtype)
+    th = torch.where(u.abs() >= 1.0, pole, torch.acos(torch.where(u.abs() >= 1.0, 0.0, u)))
+    xy0 = (cx == 0.0) & (cy == 0.0)
+    phi = ieee_div(torch.atan2(cy, torch.where(xy0, 1.0, cx)), 2 * math.pi) + 0.5
+    polar = torch.stack([rho, ieee_div(torch.where(zero, 0.0, th), math.pi), phi], -1)
+    center, normal, pv = rep
+    if not return_dist:
+        return torch.cat([center, polar, normal], -1)
+    if style == "seg":
+        return torch.cat([polar, normal, pv[..., None], center], -1)
+    return torch.cat([center, polar, normal, pv[..., None]], -1)
+
+
+def _replay_tq(xyz, valid, k, style, return_dist, lanes=TQ_LANES):
+    """umbrella_tq_kernel<KMAX> on the CPU: [B, N, G, C]."""
+    drop_self = style == "cls"
+    g_fans, _ = fan_shape(k, drop_self, return_dist)
+    kmax = 9 if k <= 9 else 17
+    keys = _merge(_scan_lists(xyz, valid, lanes, kmax), k)
+    d2 = (keys >> 32).to(torch.int32).view(torch.float32)
+    nb = torch.where(d2 >= BIG, 0, keys & 0xFFFFFFFF)[..., int(drop_self):]  # the row, [B, N, G]
+    x = _t(xyz)
+    rel = index_points(x, nb) - x[:, :, None, :]
+    own = [list(range(s, g_fans, lanes)) for s in range(lanes)]  # lane s's neighbours and fans
+    # azimuths into the shared row, by lanes
+    phi = torch.zeros(rel.shape[:-1])
+    for fans in own:
+        for g in fans:
+            phi[..., g] = fan_azimuth(rel[..., g, :], rotate=style == "seg")
+    # each lane ranks its own neighbours against the row, then places them
+    row = torch.zeros_like(rel)
+    j = torch.arange(g_fans)
+    for fans in own:
+        for g in fans:
+            p = phi[..., g:g + 1]
+            rank = ((phi < p) | ((phi == p) & (j < g))).sum(-1)
+            row.scatter_(2, rank[..., None, None].expand(-1, -1, 1, 3), rel[..., g:g + 1, :])
+
+    def fan_ends(g):
+        return row[..., g, :], row[..., (g + 1) % g_fans, :]
+
+    # the sign from fan 0 (lane 0); each lane's lowest good fan, the group's minimum
+    sign = torch.where(_make_fan(*fan_ends(0), 1.0)[1][..., 0] > 0.0, 1.0, -1.0)
+    first = torch.full(sign.shape, g_fans)
+    for fans in own:
+        mine = torch.full(sign.shape, g_fans)
+        for g in reversed(fans):
+            mine = torch.where(_make_fan(*fan_ends(g), 1.0)[3], mine, g)
+        first = torch.minimum(first, mine)
+    rg = torch.where(first == g_fans, 0, first)
+    a_rep = torch.gather(row, 2, rg[..., None, None].expand(-1, -1, 1, 3))[..., 0, :]
+    b_rep = torch.gather(row, 2, ((rg + 1) % g_fans)[..., None, None].expand(-1, -1, 1, 3))
+    c_rep, u_rep, pv_rep, _ = _make_fan(a_rep, b_rep[..., 0, :], sign)
+    out = [None] * g_fans
+    for fans in own:
+        for g in fans:
+            c, u, pv, deg = _make_fan(*fan_ends(g), sign)
+            pick = deg[..., None]
+            rep = (torch.where(pick, c_rep, c), torch.where(pick, u_rep, u),
+                   torch.where(deg, pv_rep, pv))
+            out[g] = _put_fan(c, rep, style, return_dist)
+    return torch.stack(out, dim=2)
+
+
+# G = 2 and 3: lanes without a fan; G = 4: a fan a lane; G > 4: several
+STYLE_K = [(3, "cls"), (3, "seg"), (5, "cls"), (5, "seg"), (9, "cls"), (9, "seg"), (17, "cls"),
+           (16, "seg")]
+
+
+@pytest.mark.parametrize("return_dist", [True, False])
+@pytest.mark.parametrize("k,style", STYLE_K)
+def test_tq_lane_replay_is_bit_equal_to_the_plain_composition(k, style, return_dist):
+    xyz, valid = _umbrella_cloud()
+    args = dict(drop_self=style == "cls", rotate=style == "seg", return_dist=return_dist,
+                style=style, valid=_t(valid))
+    want = umbrella_fan_features_plain(_t(xyz), k, **args)
+    got = _replay_tq(xyz, valid, k, style, return_dist)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_tq_lane_replay_matches_the_jax_tq_kernel():
+    """At one small shape, the replay against
+    umbrella_features_pallas(impl='tq') in interpret mode, within UMB_ATOL
+    away from azimuth near-ties."""
+    xyz = _grid(71, (2, 256, 3))
+    valid = np.array([256, 150], np.int32)
+    want = np.asarray(umbrella_features_pallas(
+        jnp.asarray(xyz), 9, drop_self=True, style="cls", valid=jnp.asarray(valid), impl="tq",
+        interpret=True))
+    skip = azimuth_near_ties(_t(xyz), 9, drop_self=True, valid=_t(valid), gap=NEAR_TIE).numpy()
+    assert skip.mean() <= 1e-2
+    got = _replay_tq(xyz, valid, 9, "cls", True).numpy()
+    np.testing.assert_allclose(got[~skip], want[~skip], atol=UMB_ATOL, rtol=0)
+
+
+def test_tq_entry_on_the_cpu_stays_plain():
+    x = _t(_grid(72, (2, 64, 3)))
+    want = umbrella_fan_features_plain(x, 9, drop_self=True)
+    for impl in ("auto", "tq"):
+        torch.testing.assert_close(umbrella_features_kernel(x, 9, drop_self=True, impl=impl),
+                                   want, atol=0, rtol=0)
+
+
+# --- the ball-feature kernel -------------------------------------------------
+
+WARPS, STAGE, LANE_COUNT = 8, 2048, 32  # ball_feature_kernel's block, stage, warp
+
+
+def _store_span(flat, off, stage, pad, total, written):
+    """knn_topk::store_span: element e of the span at flat[off + e] from
+    stage[pad + e]; a head up to the first 16-byte boundary, float4s whose
+    destination and stage index are both multiples of 4, a tail."""
+    assert off % 4 == pad
+    head = min((4 - pad) & 3, total)
+    body = (total - head) >> 2
+    for e in range(head):
+        flat[off + e] = stage[pad + e]
+        written[off + e] += 1
+    for v in range(body):
+        d, s = off + head + 4 * v, pad + head + 4 * v
+        assert d % 4 == 0 and s % 4 == 0
+        flat[d:d + 4] = stage[s:s + 4]
+        written[d:d + 4] += 1
+    for e in range(head + 4 * body, total):
+        flat[off + e] = stage[pad + e]
+        written[off + e] += 1
+
+
+def _polar(r):
+    """The kernel's xyz2sphere of slot offsets r [S, 3], in numpy float32."""
+    rx, ry, rz = r[:, 0], r[:, 1], r[:, 2]
+    s2 = rx * rx + ry * ry + rz * rz
+    zero = s2 == 0
+    rho = np.where(zero, np.float32(0), np.sqrt(np.where(zero, np.float32(1), s2)))
+    u = np.clip(rz / np.where(zero, np.float32(1), rho), -1, 1).astype(np.float32)
+    th = np.where(np.abs(u) >= 1, np.where(u > 0, 0, np.pi), np.arccos(u)).astype(np.float32)
+    xy0 = (rx == 0) & (ry == 0)
+    phi = np.arctan2(ry, np.where(xy0, np.float32(1), rx)) / np.float32(2 * np.pi) + np.float32(0.5)
+    return np.stack([rho, np.where(zero, 0, th).astype(np.float32) / np.float32(np.pi),
+                     phi.astype(np.float32)], -1)
+
+
+def _replay_ball(radius, nsample, xyz, q, tcat, valid, stage_points=STAGE):
+    """ball_feature_kernel on the CPU, return_polar: (pos [B, M, S, 6],
+    feat [B, M, S, C-3], sel [B, M, S]) through flat outputs whose every
+    element must be written once."""
+    b_, n, c = tcat.shape
+    m = q.shape[1]
+    fc, pc = c - 3, 6
+    r2 = np.float32(float(radius) ** 2)
+    pos = np.full(b_ * m * nsample * pc, np.nan, np.float32)
+    feat = np.full(b_ * m * nsample * fc, np.nan, np.float32)
+    sel = np.full((b_, m, nsample), -1, np.int64)
+    pw, fw = np.zeros(pos.size, np.int64), np.zeros(feat.size, np.int64)
+    lanes = np.arange(LANE_COUNT)
+    for b in range(b_):
+        nv = n if valid is None else int(valid[b])
+        for bx in range((m + WARPS - 1) // WARPS):  # blocks of 8 queries of sample b
+            for w in range(WARPS):
+                mq = bx * WARPS + w
+                if mq >= m:
+                    continue  # a warp past M: the stage's barriers only
+                query = b * m + mq
+                qv = q[b, mq]
+                slots, count = [], 0
+                for base in range(0, nv, stage_points):  # the staged points
+                    if count >= nsample:
+                        break
+                    length = min(stage_points, nv - base)
+                    for t0 in range(0, length, 4 * LANE_COUNT):  # four ballots of 32 a step
+                        if count >= nsample:
+                            break
+                        t = t0 + np.arange(4 * LANE_COUNT)
+                        ok = t < length
+                        d = xyz[b, base + np.where(ok, t, 0)] - qv
+                        hit = ok & (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+                                    <= r2)
+                        slots += [base + int(i) for i in t[hit]][:max(0, nsample - count)]
+                        count += int(hit.sum())
+                filled = min(count, nsample)
+                first = slots[0] if count else 0
+                picks = np.array([slots[s] if s < filled else first for s in range(nsample)])
+                sel[b, mq] = picks
+                # pos: rounds of 32 slots through the stage
+                off = query * nsample * pc
+                pad = off % 4
+                for s0 in range(0, nsample, LANE_COUNT):
+                    cnt = min(LANE_COUNT, nsample - s0)
+                    stage = np.full(LANE_COUNT * pc + 4, np.nan, np.float32)
+                    r = xyz[b, picks[s0:s0 + cnt]] - qv
+                    vals = np.concatenate([r, _polar(r)], -1).reshape(-1)
+                    stage[pad:pad + cnt * pc] = vals
+                    _store_span(pos, off + s0 * pc, stage, pad, cnt * pc, pw)
+                # feat: the division-free walk over the [S, fc] span
+                off = query * nsample * fc
+                total = nsample * fc
+                head = min((4 - off % 4) & 3, total)
+                body = (total - head) >> 2
+
+                def value(s, ch):
+                    return tcat[b, picks[s], 3 + ch]
+
+                for e in list(range(head)) + list(range(head + 4 * body, total)):
+                    feat[off + e] = value(e // fc, e % fc)
+                    fw[off + e] += 1
+                step_s, step_ch = 128 // fc, 128 - (128 // fc) * fc
+                s, ch = np.divmod(head + 4 * lanes, fc)  # once a lane
+                for it in range((body + LANE_COUNT - 1) // LANE_COUNT):
+                    v = lanes + LANE_COUNT * it
+                    act = v < body
+                    ss, cc = s.copy(), ch.copy()
+                    for u in range(4):
+                        dst = off + head + 4 * v[act] + u
+                        assert ((dst - u) % 4 == 0).all()
+                        feat[dst] = value(ss[act], cc[act])
+                        fw[dst] += 1
+                        cc += 1
+                        wrap = cc == fc
+                        cc[wrap], ss[wrap] = 0, ss[wrap] + 1
+                    s, ch = s + step_s, ch + step_ch
+                    carry = ch >= fc
+                    ch[carry], s[carry] = ch[carry] - fc, s[carry] + 1
+    assert (pw == 1).all() and (fw == 1).all(), "an output element written other than once"
+    return (pos.reshape(b_, m, nsample, pc), feat.reshape(b_, m, nsample, fc), sel)
+
+
+def _ball_case(c, nsample, n=300, m=37, seed=0):
+    """Grid cloud, queries on cloud points (the first three far away: empty
+    balls), M = 37 (not a multiple of a block's 8), valid [N, 151]."""
+    rs = np.random.RandomState(seed)
+    xyz = _grid(80 + seed, (2, n, 3))
+    q = xyz[:, rs.choice(n, m, replace=False)].copy()
+    q[:, :3] += 3.0  # outside the cloud by more than any radius here
+    tcat = np.concatenate([xyz, rs.randn(2, n, c - 3).astype(np.float32)], -1)
+    return xyz, q, tcat, np.array([n, 151], np.int32)
+
+
+@pytest.mark.parametrize("stage", [STAGE, 64])
+@pytest.mark.parametrize("nsample", [1, 33, 64])
+@pytest.mark.parametrize("c", [4, 13, 141, 142])
+def test_ball_feature_replay_matches_the_plain_version(c, nsample, stage):
+    xyz, q, tcat, valid = _ball_case(c, nsample, seed=c + nsample)
+    pos, feat, sel = _replay_ball(0.45, nsample, xyz, q, tcat, valid, stage_points=stage)
+    tensors = [_t(xyz), _t(tcat[..., 3:])]
+    ppos, pfeat = ball_group_feature_plain(0.45, nsample, _t(xyz), _t(q), tensors,
+                                           valid=_t(valid), return_polar=True)
+    np.testing.assert_array_equal(sel, ball_query(0.45, nsample, _t(xyz), _t(q),
+                                                  valid=_t(valid)).numpy())
+    np.testing.assert_array_equal(feat, pfeat.numpy())
+    np.testing.assert_allclose(pos, ppos.numpy(), atol=POS_ATOL, rtol=0)
+    assert (sel[:, :3] == 0).all()  # the empty balls gather point 0
+    assert nsample == 1 or (sel[:, 3:] != sel[:, 3:, :1]).any()  # some balls hold several points
+
+
+@pytest.mark.parametrize("n_feat", [0, 128])  # C = 13 and C = 141
+def test_ball_feature_replay_matches_the_jax_kernel(n_feat):
+    c = 13 + n_feat
+    xyz, q, tcat, valid = _ball_case(c, 32, n=256, m=21, seed=90 + n_feat)
+    pos, feat, _ = _replay_ball(0.4, 32, xyz, q, tcat, valid)
+    jpos, jfeat = ball_group_feature_pallas(
+        0.4, 32, jnp.asarray(xyz), jnp.asarray(q),
+        [jnp.asarray(xyz), jnp.asarray(tcat[..., 3:13]), jnp.asarray(tcat[..., 13:]), None],
+        valid=jnp.asarray(valid), return_polar=True, interpret=True)
+    np.testing.assert_array_equal(feat, np.asarray(jfeat))
+    np.testing.assert_allclose(pos, np.asarray(jpos), atol=POS_ATOL, rtol=0)
+
+
+def test_ball_feature_selection_entry_on_the_cpu():
+    xyz, q, tcat, valid = _ball_case(13, 16, n=120, m=9, seed=95)
+    tensors = [_t(xyz), _t(tcat[..., 3:])]
+    pos, feat, sel = ball_group_feature_selection(0.45, 16, _t(xyz), _t(q), tensors,
+                                                  valid=_t(valid), return_polar=True)
+    ppos, pfeat = ball_group_feature_plain(0.45, 16, _t(xyz), _t(q), tensors, valid=_t(valid),
+                                           return_polar=True)
+    torch.testing.assert_close((pos, feat), (ppos, pfeat), atol=0, rtol=0)
+    assert torch.equal(sel, ball_query(0.45, 16, _t(xyz), _t(q), valid=_t(valid)))

@@ -8,8 +8,8 @@ Run from the root of a checkout.  Phases, each printing its lines:
                nvidia-smi gives them, the torch / CUDA versions, TF32 off;
   2. build   - compiles repsurf_torch/csrc/*.cu with nvcc, prints the time
                and, from ptxas's report, the registers, stack and spills
-               of the kNN, FPS, umbrella tq (both list lengths) and
-               ball-feature kernels;
+               of the kNN, FPS, umbrella (tq at both list lengths, full,
+               the slab's two passes) and ball-feature kernels;
   3. kernels - each CUDA kernel against its plain PyTorch version on the
                card, at the shapes of the classification eval path, with
                kernel and plain times (CUDA events, median of 20 runs), the
@@ -24,12 +24,17 @@ Run from the root of a checkout.  Phases, each printing its lines:
                selection bit-equal to the plain version and ball_query;
   3b. umbrella kernels - tq, full and slab against the plain composition
                at the cls shape (C = 10, and C = 9 for tq) and at a small
-               room's pass (the seg style), full bit-equal to tq, each
-               timed tq's device time beside its scan floor (the same
-               launch without the fan geometry and the stores), the
-               slab's re-solved queries per sample equal to the plain guard
-               replay's, the seg-style gradient; the kernel entry driven
-               with impl full and slab for their launch counts;
+               room's pass (the seg style), full and the slab's live rows
+               bit-equal to tq there and at small shapes, each timed tq's
+               device time beside its scan floor (the same launch without
+               the fan geometry and the stores), full's block-size sweep
+               (8, 16, 32 warps) beside tq's device time, the slab's
+               listed queries equal to the plain guard replay's mask, its
+               call split into slab_order, the window pass and the
+               re-solve pass (CUDA events and torch.profiler), the re-solve
+               pass alone on the window pass's list, the seg-style
+               gradient; the kernel entry driven with impl full and slab
+               for their launch counts;
   4. slice   - repsurf_ssg_umb at full width, seeded random weights, vote
                evaluation (batch 64, 2048 -> 1024 points, 10 votes) through
                the kernels; launch counts, finite log-probs, kernel path
@@ -158,6 +163,9 @@ PTXAS_KERNELS = (  # (label, a substring of the mangled name) for the build's re
     ("fps_kernel<32,stream>", "fps_kernelILi32ELb1EE"),
     ("umbrella_tq_kernel<9>", "umbrella_tq_kernelILi9ELb0EE"),
     ("umbrella_tq_kernel<17>", "umbrella_tq_kernelILi17ELb0EE"),
+    ("umbrella_full_kernel<9>", "umbrella_full_kernelILi9ELi8EE"),
+    ("umbrella_slab_kernel<9>", "20umbrella_slab_kernelILi9EE"),
+    ("umbrella_slab_resolve_kernel<9>", "umbrella_slab_resolve_kernelILi9EE"),
     ("ball_feature_kernel", "19ball_feature_kernelE"),
 )
 FPS_FLOPS = 9  # a distance and the running minimum
@@ -412,12 +420,121 @@ def umbrella_near_ties(xyz, k, style, valid=None):
                              valid=valid, gap=NEAR_TIE)
 
 
+def slab_listed(xyz, k, args):
+    """The slab window pass's list of failing queries: ([B, N] bool, the
+    counts per sample)."""
+    from repsurf_torch.ops.kernels.common import counts_i32
+    from repsurf_torch.ops.kernels.umbrella import slab_order, slab_pass
+
+    flags = {a: args[a] for a in ("drop_self", "rotate", "return_dist", "style")}
+    valid = counts_i32(args["valid"], xyz.shape[0], xyz.device)
+    _, resolved, fails = slab_pass(xyz, valid, slab_order(xyz, valid), k, **flags)
+    counts = resolved.tolist()
+    listed = torch.zeros(xyz.shape[:2], dtype=torch.bool, device=xyz.device)
+    for s, c in enumerate(counts):
+        listed[s, fails[s, :c].long()] = True
+    return listed, counts
+
+
+def slab_split(name, xyz, k, args):
+    """The slab call's three steps timed apart: slab_order (the x-sort),
+    the window pass and the re-solve pass, each by CUDA events (median),
+    and the call's device time by kernel.  Returns the dict it prints."""
+    from repsurf_torch.ops.kernels.common import counts_i32
+    from repsurf_torch.ops.kernels.umbrella import (
+        slab_order,
+        slab_pass,
+        slab_resolve,
+        umbrella_features_kernel,
+    )
+
+    flags = {a: args[a] for a in ("drop_self", "rotate", "return_dist", "style")}
+    valid = counts_i32(args["valid"], xyz.shape[0], xyz.device)
+    order = slab_order(xyz, valid)
+    outs = slab_pass(xyz, valid, order, k, **flags)
+    dev = device_split(lambda: umbrella_features_kernel(xyz, k, impl="slab", **args),
+                       {"pass": "umbrella_slab_kernel", "resolve": "umbrella_slab_resolve"})
+    split = {"order_ms": median_ms(lambda: slab_order(xyz, valid)),
+             "pass_ms": median_ms(lambda: slab_pass(xyz, valid, order, k, **flags)),
+             "resolve_ms": median_ms(lambda: slab_resolve(xyz, valid, *outs, k, **flags)),
+             "order_device_ms": dev["other"], "pass_device_ms": dev["pass"],
+             "resolve_device_ms": dev["resolve"]}
+    print(f"    {name}: slab_order {split['order_ms']:.4f} ms, window pass "
+          f"{split['pass_ms']:.4f} ms, re-solve pass {split['resolve_ms']:.4f} ms (CUDA events); "
+          f"device time (profiler) window pass {dev['pass']:.4f} ms, re-solve pass "
+          f"{dev['resolve']:.4f} ms, the rest (the sort) {dev['other']:.4f} ms")
+    return split
+
+
+def check_slab_resolve(name, xyz, k, args, near):
+    """The slab's re-solve kernel alone on the window pass's list: its rows
+    against the plain composition over the listed queries (within UMB_ATOL
+    away from near-ties), with its kernels-JSON entry."""
+    from repsurf_torch.geometry.umbrella import umbrella_for_queries
+    from repsurf_torch.ops.kernels.common import counts_i32
+    from repsurf_torch.ops.kernels.knn import knn_plain
+    from repsurf_torch.ops.kernels.umbrella import fan_shape, slab_order, slab_pass, slab_resolve
+
+    flags = {a: args[a] for a in ("drop_self", "rotate", "return_dist", "style")}
+    b, n = xyz.shape[0], xyz.shape[1]
+    valid = counts_i32(args["valid"], b, xyz.device)
+    outs = slab_pass(xyz, valid, slab_order(xyz, valid), k, **flags)
+    out, resolved, fails = outs
+    slab_resolve(xyz, valid, *outs, k, **flags)
+    counts = resolved.tolist()
+    listed = [(s, fails[s, :c].long()) for s, c in enumerate(counts) if c]
+
+    def plain():
+        rows = []
+        for s, r in listed:
+            q = xyz[s:s + 1, r]
+            idx, _ = knn_plain(k, xyz[s:s + 1], q, valid=None if valid is None else valid[s:s + 1])
+            rows.append(umbrella_for_queries(xyz[s:s + 1], q, idx[..., int(flags["drop_self"]):],
+                                             rotate=flags["rotate"],
+                                             return_dist=flags["return_dist"],
+                                             style=flags["style"]))
+        return rows
+
+    err = 0.0
+    for (s, r), want in zip(listed, plain()):
+        e = (out[s, r] - want[0]).abs().amax(dim=(1, 2))[~near[s, r]]
+        err = max(err, float(e.max()) if e.numel() else 0.0)
+    if err > UMB_ATOL:
+        raise AssertionError(f"{name}: a re-solved row differs by {err} away from near-ties")
+    g, c = fan_shape(k, flags["drop_self"], flags["return_dist"])
+    nv = [n] * b if valid is None else valid.tolist()
+    pairs = sum(cnt * nv[s] for s, cnt in enumerate(counts))
+    entry = _entry(name, UMB_SRC, UMB_REPLACES["slab"], err,
+                   lambda: slab_resolve(xyz, valid, *outs, k, **flags), plain,
+                   # the listed queries against every point; the cloud in
+                   # once, the listed rows out
+                   (KNN_FLOPS * pairs, 4 * (3 * b * n + sum(counts) * g * c)))
+    entry["resolved_per_sample"] = counts
+    return entry
+
+
+def full_sweep(name, xyz, k, args, want, tq_device_ms):
+    """The full kernel at 8, 16 and 32 warps a block, each bit-equal to tq's
+    features ``want``: device times beside tq's.  Returns {warps: ms}."""
+    from repsurf_torch.ops.kernels.umbrella import umbrella_full_warps
+
+    times = {}
+    for warps in (8, 16, 32):
+        if not torch.equal(umbrella_full_warps(xyz, k, warps, **args), want):
+            raise AssertionError(f"{name}: {warps} warps a block differ from tq")
+        times[warps] = device_ms(lambda: umbrella_full_warps(xyz, k, warps, **args))
+    print(f"    {name}: block sweep, device time by warps a block "
+          + ", ".join(f"{w} {t:.4f} ms" for w, t in times.items())
+          + f" (each bit-equal to tq); tq {tq_device_ms:.4f} ms")
+    return times
+
+
 def check_umbrella(impl, xyz, style, return_dist=True, valid=None, near=None, k=9,
                    timed=True):
     """One umbrella kernel against the plain composition: within UMB_ATOL
     away from azimuth near-ties (at most 0.1 % of the points); the slab's
-    re-solved queries per sample equal to the plain guard replay's; a timed
-    tq beside its scan floor's device time.
+    listed queries equal to the plain guard replay's mask, their counts to
+    the call's; a timed tq beside its scan floor's device time.
     Returns (features, its kernels-JSON entry when ``timed``, else None)."""
     from repsurf_torch.ops.kernels.umbrella import (
         SLAB,
@@ -448,14 +565,18 @@ def check_umbrella(impl, xyz, style, return_dist=True, valid=None, near=None, k=
     pairs = n * nv
     extra = ""
     if impl == "slab":
-        resolved = umbrella_features_kernel.slab_resolved
-        replay = slab_guard_plain(xyz, k, valid).sum(dim=1)
-        if not torch.equal(resolved, replay):
-            raise AssertionError(f"{tag}: re-solved {resolved.tolist()}, the plain guard "
-                                 f"replay {replay.tolist()}")
-        extra = f"; re-solved queries per sample {resolved.tolist()} = the plain guard replay's"
-        # the window's candidates, then the brute re-solve of each flagged query
-        pairs = 3 * SLAB * n * b + int(resolved.sum()) * (nv // b)
+        resolved = umbrella_features_kernel.slab_resolved.tolist()
+        listed, counts = slab_listed(xyz, k, args)
+        replay = slab_guard_plain(xyz, k, valid)
+        if counts != resolved or int(listed.sum()) != sum(counts) or \
+                not torch.equal(listed, replay):
+            raise AssertionError(f"{tag}: listed {counts} (the call {resolved}), the plain "
+                                 f"guard replay {replay.sum(dim=1).tolist()}, "
+                                 f"{int((listed != replay).sum())} queries differ")
+        extra = (f"; re-solved queries per sample {resolved}, the listed set = the plain guard "
+                 "replay's mask")
+        # the window's candidates, then the whole cloud for each listed query
+        pairs = 3 * SLAB * n * b + sum(resolved) * (nv // b)
     print(f"  {tag}: near-tie points {n_near} of {n_pts}; points off by > {UMB_ATOL}: "
           f"{int(off.sum())}{extra}")
     if (off & ~near).any():
@@ -636,15 +757,18 @@ def reset_umbrella_counts():
     for counts in (umb.launches, umb.launches_by_style):
         for key in counts:
             counts[key] = 0
+    umb.slab_resolve_launches = 0
 
 
 def umbrella_counts():
-    """{'umbrella_tq': n, 'umbrella_full': n, 'umbrella_slab': n} and the
-    launches by style, since the last reset."""
+    """{'umbrella_tq': n, 'umbrella_full': n, 'umbrella_slab': n,
+    'umbrella_slab_resolve': n} and the launches by style, since the last
+    reset."""
     from repsurf_torch.ops.kernels.umbrella import umbrella_features_kernel as umb
 
-    return ({f"umbrella_{k}": v for k, v in umb.launches.items()},
-            dict(umb.launches_by_style))
+    by_impl = {f"umbrella_{k}": v for k, v in umb.launches.items()}
+    by_impl["umbrella_slab_resolve"] = umb.slab_resolve_launches
+    return by_impl, dict(umb.launches_by_style)
 
 
 def phase_slice(dev):
@@ -1504,10 +1628,12 @@ def phase_seg_slice(dev, profile=False):
 
 def phase_umbrella(dev, xyz1):
     """The three umbrella kernels against the plain composition at the cls
-    shape (both C) and at a small room's pass, full bit-equal to tq, each
-    timed tq beside its scan floor, the seg-style gradient; then the kernel entry driven with impl full and
-    slab at both shapes (no model reaches them, as in the JAX package),
-    the path their launch counts are read from."""
+    shape (both C) and at a small room's pass, full and the slab's live
+    rows bit-equal to tq, each timed tq beside its scan floor, full's block
+    sweep, the slab's call split and its re-solve pass alone, the seg-style
+    gradient; then the kernel entry driven with impl full and slab at both
+    shapes (no model reaches them, as in the JAX package), the path their
+    launch counts are read from."""
     from repsurf_torch.data.synthetic_scene import synthetic_room
     from repsurf_torch.ops.kernels.umbrella import umbrella_features_kernel
 
@@ -1517,18 +1643,40 @@ def phase_umbrella(dev, xyz1):
                     for _ in range(2)])
     seg = torch.from_numpy(seg - seg.mean(axis=1, keepdims=True)).to(dev)
     valid = torch.tensor([SEG_ROOM_POINTS, R2_POINTS], device=dev)
-    entries, outs = [], {}
+
+    def live(xyz, v):
+        b, n = xyz.shape[0], xyz.shape[1]
+        if v is None:
+            return torch.ones((b, n), dtype=torch.bool, device=xyz.device)
+        return torch.arange(n, device=xyz.device)[None] < v[:, None]
+
+    entries = []
     with torch.inference_mode():
         near = {"cls": umbrella_near_ties(xyz1, 9, "cls"),
                 "seg": umbrella_near_ties(seg, 9, "seg", valid)}
         for style, xyz, v in (("cls", xyz1, None), ("seg", seg, valid)):
+            args = dict(drop_self=style == "cls", rotate=style == "seg", return_dist=True,
+                        style=style, valid=v)
+            outs, got = {}, {}
             for impl in ("tq", "full", "slab"):
-                outs[style, impl], e = check_umbrella(impl, xyz, style, valid=v, near=near[style])
-                entries.append(e)
-            same = torch.equal(outs[style, "full"], outs[style, "tq"])
-            print(f"  {style}: full bit-equal to tq: {same}")
-            if not same:
-                raise AssertionError(f"umbrella {style}: full differs from tq")
+                outs[impl], got[impl] = check_umbrella(impl, xyz, style, valid=v,
+                                                       near=near[style])
+                entries.append(got[impl])
+            rows = live(xyz, v)
+            same = (torch.equal(outs["full"], outs["tq"]),
+                    torch.equal(outs["slab"][rows], outs["tq"][rows]))
+            print(f"  {style}: full bit-equal to tq: {same[0]}; the slab's live rows bit-equal "
+                  f"to tq: {same[1]}")
+            if not all(same):
+                raise AssertionError(f"umbrella {style}: full or slab differs from tq")
+            got["full"]["warps_device_ms"] = full_sweep(got["full"]["name"], xyz, 9, args,
+                                                        outs["tq"], got["tq"]["device_ms"])
+            got["slab"].update(slab_split(got["slab"]["name"], xyz, 9, args))
+            e = check_slab_resolve(got["slab"]["name"].replace("umbrella_slab",
+                                                               "umbrella_slab_resolve"),
+                                   xyz, 9, args, near[style])
+            e.update(impl="slab_resolve", style=style)
+            entries.append(e)
             if style == "cls":
                 want, e = check_umbrella("tq", xyz, style, return_dist=False, near=near[style])
                 full9 = umbrella_features_kernel(xyz, 9, drop_self=True, return_dist=False,
@@ -1549,10 +1697,12 @@ def phase_umbrella(dev, xyz1):
             near_k = umbrella_near_ties(small, k, style, few)
             got = [check_umbrella(impl, small, style, return_dist=dist, valid=few, near=near_k,
                                   k=k, timed=False)[0] for impl in impls]
-            if len(got) > 1 and not torch.equal(got[0], got[1]):
-                raise AssertionError(f"umbrella k={k} {style}: full differs from tq")
-        print("  small shapes (k in 5, 13, 14, 12, 17, 16; valid 8 and 5): tq bit-equal to "
-              "full")
+            rows = live(small, few)
+            if len(got) > 1 and not (torch.equal(got[0], got[1])
+                                     and torch.equal(got[2][rows], got[0][rows])):
+                raise AssertionError(f"umbrella k={k} {style}: full or slab differs from tq")
+        print("  small shapes (k in 5, 13, 14, 12, 17, 16; valid 8 and 5): full and the slab's "
+              "live rows bit-equal to tq")
     check_umbrella_grad(seg, "seg")
 
     reset_umbrella_counts()
@@ -1564,8 +1714,8 @@ def phase_umbrella(dev, xyz1):
     counts = umbrella_counts()[0]
     print(f"  umbrella_features_kernel driven with impl full and slab at both shapes: "
           f"launches {counts}")
-    if counts["umbrella_full"] == 0 or counts["umbrella_slab"] == 0:
-        raise AssertionError("the full or slab umbrella kernel was not launched")
+    if min(counts[f"umbrella_{impl}"] for impl in ("full", "slab", "slab_resolve")) == 0:
+        raise AssertionError("a full or slab umbrella kernel was not launched")
     return entries, counts
 
 

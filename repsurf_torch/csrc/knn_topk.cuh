@@ -96,6 +96,23 @@ struct List {
     i[0] = lt[0] ? ii : i[0];
   }
 
+  // insert() with each slot's new value taken from comparisons of the pair
+  // on the old list, all independent (no chain of compare-and-swaps), K <=
+  // 32: for candidates in any order, as the umbrella slab's x-sorted window
+  __device__ __forceinline__ void insert_any_order(float dd, int ii) {
+    static_assert(K <= 32, "insert_any_order keeps the list in registers");
+    bool lt[K];
+#pragma unroll
+    for (int s = 0; s < K; ++s) lt[s] = before(dd, ii, d[s], i[s]);
+#pragma unroll
+    for (int s = K - 1; s > 0; --s) {
+      d[s] = lt[s - 1] ? d[s - 1] : (lt[s] ? dd : d[s]);
+      i[s] = lt[s - 1] ? i[s - 1] : (lt[s] ? ii : i[s]);
+    }
+    d[0] = lt[0] ? dd : d[0];
+    i[0] = lt[0] ? ii : i[0];
+  }
+
   // the first k entries (see store_slot)
   __device__ __forceinline__ void store(int k, int* idx, float* dist) const {
 #pragma unroll

@@ -1,51 +1,64 @@
-// Fused umbrella geometry: three kernels that compute one function, each
-// the counterpart of one Pallas kernel of repsurf_tpu/ops/pallas/umbrella.py.
+// Fused umbrella geometry: kernels that compute one function, each the
+// counterpart of one Pallas kernel of repsurf_tpu/ops/pallas/umbrella.py.
 //
 //   umbrella_tq_kernel    replaces _umbrella_tq_kernel (:302), an aligned
 //                         group of kTqLanes = 4 lanes per query;
 //   umbrella_full_kernel  replaces _umbrella_kernel (:88), one warp per
 //                         query;
 //   umbrella_slab_kernel  replaces _umbrella_slab_kernel (:606), x-sorted
-//                         slabs of 128 queries against a 3-slab window, with
-//                         the exactness guard's outputs.
+//   + umbrella_slab_      slabs of 128 queries against a 3-slab window with
+//     resolve_kernel      the exactness guard in the kernel, then the
+//                         queries the window cannot vouch for re-solved
+//                         over the whole cloud by a second launch.
 //
 // What bounds them on the H100: the k-nearest-neighbour scan.  The tq and
 // full kernels test all N candidates of every query, a few flops and a
 // compare each: O(N^2) instruction-bound work per sample against an output of
-// G*C floats per query.  The slab kernel tests 384 candidates per query and
-// leaves the queries its window cannot vouch for to the wrapper's re-solve.
+// G*C floats per query.  The slab's window pass tests 384 candidates per
+// query; its re-solve pass scans the whole cloud for the queries it lists.
 // What the designs do about it:
-//   * tq: 32 queries a block, L = kTqLanes = 4 lanes each.  The candidates
-//     are tiled through shared memory as float4, so the cloud leaves L2
-//     once per block; each lane scans every L-th candidate
-//     of a tile into its own k-best list in registers, screening 32
+//   * one scan for tq, full and the slab's re-solve (screened_scan): an
+//     aligned group of L lanes takes one query; the candidates are tiled
+//     through shared memory as float4, so the cloud leaves L2 once per
+//     block; each lane scans every L-th candidate of a tile into its own
+//     k-best list in registers, screening U = min(32, kTile / L)
 //     candidates at a time against the group's smallest k-th distance and
 //     inserting the few that pass afterwards, in index order (a warp whose
 //     lanes insert at different candidates would otherwise take the
 //     insertion path at nearly every candidate), and the group merges its
-//     lists in k shuffle rounds (merge_lanes, knn_topk.cuh).  The fan
-//     geometry is split over the group too: lane s takes the neighbours and
-//     fans g = s (mod L); the azimuths, the sorted neighbours and the merged
-//     indices meet in a per-query row of shared memory; the sign comes from
-//     fan 0's lane by a shuffle and the first good fan from a group minimum.
-//     Each query's G*C features land in a shared-memory stage, and the block
-//     writes its queries' contiguous span with 16-byte stores from
-//     consecutive threads.  Four lanes were the fastest split measured at
-//     every path shape (the cls eval batch, R2's passes): fewer leave the
-//     card under-filled and the epilogue serial, more keep more part-filled
-//     lists and merge longer.
-//   * full: the TPU kernel spreads one query's scan across lanes; here one
-//     warp takes one query, each lane scans every 32nd candidate of a shared
-//     tile with its own k-best list, and the warp merges the 32 lists in k
-//     rounds of a shuffle arg-min on (d^2, index); lane 0 runs the
-//     one-thread epilogue.
-//   * slab: one block per (sample, slab), the 3-slab window staged once in
-//     shared memory, one thread per query.
+//     lists in k shuffle rounds (merge_lanes, knn_topk.cuh).  tq takes
+//     L = 4 and 32 queries a block, full L = 32 (the TPU kernel's one
+//     query across its lanes) and kFullWarps queries a block: two fixed
+//     instantiations of one body (group_block), so they cannot drift apart.
+//   * one fan epilogue (lane_fan_features): lane s of the group takes the
+//     neighbours and fans g = s (mod L); the azimuths, the sorted neighbours
+//     and the merged indices meet in a per-query row of shared memory; the
+//     sign comes from fan 0's lane by a shuffle and the first good fan from
+//     a group minimum.  With L = 32 and G <= 14 a lane holds one fan.
+//   * stores: tq and full stage the block's queries, one contiguous span of
+//     the output, in shared memory and write it with 16-byte stores from
+//     consecutive threads (knn_topk::store_span); the slab kernels write
+//     each query's row at its original index through its own staged row
+//     and the same span store, four lanes a row.
+//   * slab: a block takes 32 queries of one slab (4 lanes each, 128
+//     threads) with the 3-slab window staged as float4 (x, y, z, original
+//     index).  The window is x-sorted, not in index order, so its lists
+//     insert by the (d^2, index) pair (List::insert_any_order), the
+//     query's own slab first.  The group's merged
+//     k-th distance and the query's margin to the nearest x outside the
+//     window give the guard in the kernel; a query it cannot vouch for
+//     takes a slot of its sample's list from atomicAdd(resolved + b, 1) and
+//     skips the epilogue.  The re-solve pass runs on the same stream on a
+//     fixed grid whose blocks stride over resolved[b], read on the device
+//     (the design of knn_window.cu), 32 listed queries of one sample a
+//     block through the shared scan and epilogue: the host never waits.
 // Every form builds its fans with the same two functions (make_fan and
 // put_fan below, the counterparts of _fan_geometry_pack /
-// _fan_geometry_pack_tq), so the kernels stay bit-equal to one another.
-// repsurf_umbrella_tq_scan_floor is the tq launch without the fan geometry
-// and the feature stores: the scan and merge alone, for the measurement.
+// _fan_geometry_pack_tq) over the same neighbour list, so the kernels are
+// bit-equal to one another.  repsurf_umbrella_tq_scan_floor is the tq launch
+// without the fan geometry and the feature stores, and
+// repsurf_umbrella_full_warps the full kernel at 8, 16 or 32 warps a block:
+// measurements, not features.
 //
 // The list length is a template parameter KMAX (9 or 17) and k a runtime
 // value k <= KMAX: every index into the per-thread arrays must be a
@@ -87,15 +100,14 @@ namespace {
 
 using knn_topk::kBig;
 
-constexpr int kTqQueries = 32;    // tq: queries per block
-constexpr int kTqLanes = 4;       // tq: lanes per query
-constexpr int kTqTile = 512;      // tq: candidates per shared tile
-constexpr int kTile = 256;        // full: candidates per shared tile
-constexpr int kFullWarps = 8;     // full: queries (warps) per block
-constexpr int kSlab = 128;        // slab: points per slab, queries per block
+constexpr int kTqQueries = 32;  // tq, slab: queries per block
+constexpr int kTqLanes = 4;     // tq, slab: lanes per query
+constexpr int kTile = 512;      // tq, full, re-solve: candidates per shared tile
+constexpr int kFullWarps = 8;   // full: queries (warps) per block
+constexpr int kSlab = 128;      // slab: points per slab
 constexpr int kWindow = 3 * kSlab;
-constexpr int kMaxFans = 16;      // tq: G <= 16
-constexpr int kMaxLanes = 128;    // full, slab: G * C <= 128
+constexpr int kMaxFans = 16;    // tq: G <= 16
+constexpr int kMaxLanes = 128;  // full, slab: G * C <= 128
 
 // FIXED_ROTATION_ROWS, row-vector points: xr = x R00 + y R10 + z R20,
 // yr = x R01 + y R11 + z R21
@@ -178,117 +190,27 @@ __device__ __forceinline__ void put_fan(const Fan& f, const Fan& r, const Opts& 
 
 __device__ __forceinline__ int successor(int g, int G) { return g + 1 < G ? g + 1 : 0; }
 
-// The one-thread epilogue: fan geometry from the neighbours' coordinates
-// relative to q, in kNN order (gx[g], g < o.g), into one point's G*C
-// outputs.
-template <int KMAX>
-__device__ __forceinline__ void fan_features(const float (&gx)[KMAX],
-                                             const float (&gy)[KMAX],
-                                             const float (&gz)[KMAX],
-                                             const Opts& o,
-                                             float* __restrict__ out) {
-  const int G = o.g;
-  float phi[KMAX];
-#pragma unroll
-  for (int g = 0; g < KMAX; ++g) phi[g] = fan_azimuth(gx[g], gy[g], gz[g], o.rotate);
-  // stable ascending rank, then the coordinates in sorted order
-  int rank[KMAX];
-#pragma unroll
-  for (int g = 0; g < KMAX; ++g) {
-    int r = 0;
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j)
-      if (j < G) r += (phi[j] < phi[g]) || (phi[j] == phi[g] && j < g);
-    rank[g] = r;
+// the lanes of the calling lane's aligned group of L
+template <int L>
+__device__ __forceinline__ unsigned group_mask() {
+  if constexpr (L == 32) {
+    return knn_topk::kFullMask;
+  } else {
+    return ((1u << L) - 1) << ((threadIdx.x & 31) & ~(L - 1));
   }
-  float sx[KMAX], sy[KMAX], sz[KMAX];
-#pragma unroll
-  for (int r = 0; r < KMAX; ++r) {
-    sx[r] = 0.0f;
-    sy[r] = 0.0f;
-    sz[r] = 0.0f;
-#pragma unroll
-    for (int g = 0; g < KMAX; ++g) {
-      if (g < G && rank[g] == r) {
-        sx[r] = gx[g];
-        sy[r] = gy[g];
-        sz[r] = gz[g];
-      }
-    }
-  }
-// fan g pairs sorted g with its successor, sorted (g + 1) mod G
-#define UMB_B(arr, g) ((g) + 1 < G ? arr[((g) + 1) % KMAX] : arr[0])
-  const float sign =
-      make_fan(sx[0], sy[0], sz[0], UMB_B(sx, 0), UMB_B(sy, 0), UMB_B(sz, 0), 1.0f).ux > 0.0f
-          ? 1.0f
-          : -1.0f;
-  // the first good fan (fan 0 when every fan is degenerate)
-  float ax = sx[0], ay = sy[0], az = sz[0];
-  float bx = UMB_B(sx, 0), by = UMB_B(sy, 0), bz = UMB_B(sz, 0);
-#pragma unroll
-  for (int g = KMAX - 1; g >= 0; --g) {
-    float nx, ny, nz;
-    if (g < G && cross(sx[g], sy[g], sz[g], UMB_B(sx, g), UMB_B(sy, g), UMB_B(sz, g), nx, ny,
-                       nz) != 0.0f) {
-      ax = sx[g], ay = sy[g], az = sz[g];
-      bx = UMB_B(sx, g), by = UMB_B(sy, g), bz = UMB_B(sz, g);
-    }
-  }
-  const Fan rep = make_fan(ax, ay, az, bx, by, bz, sign);
-#pragma unroll
-  for (int g = 0; g < KMAX; ++g) {
-    if (g >= G) continue;
-    const Fan f = make_fan(sx[g], sy[g], sz[g], UMB_B(sx, g), UMB_B(sy, g), UMB_B(sz, g), sign);
-    if (f.deg) {
-      put_fan(f, rep, o, out + g * o.c);
-    } else {
-      put_fan(f, f, o, out + g * o.c);
-    }
-  }
-#undef UMB_B
-}
-
-// From a finished k-best list of (d^2, index) to the point's features:
-// drop column 0 when skipping, take the fan neighbours relative to q from
-// src [N, 3] (a missing slot: point 0), run the one-thread epilogue.
-template <int KMAX>
-__device__ __forceinline__ void emit(knn_topk::List<KMAX>& best,
-                                     const float* __restrict__ src, float qx,
-                                     float qy, float qz, const Opts& o,
-                                     float* __restrict__ out) {
-  if (o.skip) {
-#pragma unroll
-    for (int s = 0; s < KMAX - 1; ++s) {
-      best.d[s] = best.d[s + 1];
-      best.i[s] = best.i[s + 1];
-    }
-  }
-  float gx[KMAX], gy[KMAX], gz[KMAX];
-#pragma unroll
-  for (int g = 0; g < KMAX; ++g) {
-    gx[g] = 0.0f;
-    gy[g] = 0.0f;
-    gz[g] = 0.0f;
-    if (g < o.g) {
-      const int j = best.d[g] >= kBig ? 0 : best.i[g];
-      gx[g] = src[j * 3 + 0] - qx;
-      gy[g] = src[j * 3 + 1] - qy;
-      gz[g] = src[j * 3 + 2] - qz;
-    }
-  }
-  fan_features<KMAX>(gx, gy, gz, o, out);
 }
 
 // The group epilogue of L lanes: lane `sub` takes the neighbours and the
 // fans g = sub (mod L).  nb[0 .. G) are the query's neighbour indices in
 // kNN order (self column already dropped); phi, rx, ry, rz the query's
-// shared row (G floats each); out its G*C outputs.  Called by every lane of
-// the warp together (the shuffles name the whole warp).
+// shared row (G floats each); out its G*C outputs.  Called together by the
+// lanes of `mask`, which holds the group: the whole warp where every group
+// of it gets here, else group_mask<L>().
 template <int L>
 __device__ __forceinline__ void lane_fan_features(const int* nb, const float* __restrict__ src,
                                                   float qx, float qy, float qz, const Opts& o,
                                                   float* phi, float* rx, float* ry, float* rz,
-                                                  int sub, float* out) {
+                                                  int sub, unsigned mask, float* out) {
   constexpr int F = (kMaxFans + L - 1) / L;  // fans a lane at most
   const int G = o.g;
   float gx[F], gy[F], gz[F], ph[F];
@@ -306,7 +228,7 @@ __device__ __forceinline__ void lane_fan_features(const int* nb, const float* __
       phi[g] = ph[f];
     }
   }
-  __syncwarp();
+  __syncwarp(mask);
   // stable ascending rank among the query's G azimuths; each own neighbour
   // to its sorted place in the row
 #pragma unroll
@@ -323,16 +245,15 @@ __device__ __forceinline__ void lane_fan_features(const int* nb, const float* __
       rz[r] = gz[f];
     }
   }
-  __syncwarp();
+  __syncwarp(mask);
   // the sign, from fan 0 on the group's first lane
-  const int lane = threadIdx.x & 31;
-  const int lead = lane & ~(L - 1);
+  const int lead = (threadIdx.x & 31) & ~(L - 1);
   float sign = 1.0f;
   if (sub == 0) {
     const int h = successor(0, G);
     sign = make_fan(rx[0], ry[0], rz[0], rx[h], ry[h], rz[h], 1.0f).ux > 0.0f ? 1.0f : -1.0f;
   }
-  sign = __shfl_sync(knn_topk::kFullMask, sign, lead);
+  sign = __shfl_sync(mask, sign, lead);
   // the first good fan: the lowest non-degenerate fan over the group
   int first = G;
 #pragma unroll
@@ -346,7 +267,7 @@ __device__ __forceinline__ void lane_fan_features(const int* nb, const float* __
   }
 #pragma unroll
   for (int off = L / 2; off > 0; off >>= 1)
-    first = min(first, __shfl_xor_sync(knn_topk::kFullMask, first, off));
+    first = min(first, __shfl_xor_sync(mask, first, off));
   const int rg = first == G ? 0 : first;
   // own fans; a degenerate one takes the first good fan, built from the row
 #pragma unroll
@@ -366,87 +287,63 @@ __device__ __forceinline__ void lane_fan_features(const int* nb, const float* __
   }
 }
 
-// The tq kernel's shared memory: the candidate tile, the output stage of
-// the block's 32 queries (3 floats of slack for the span's alignment), and
-// a row per query (the merged indices, the azimuths, the sorted
-// neighbours).  In floats, each part a multiple of 4.
-struct TqLayout {
-  int stage, row;
+// Shared memory, in floats, each part a multiple of 4 (16-byte aligned):
+// a span of q queries' outputs with 3 floats of slack for its 16-byte phase;
+// one query's own row of outputs, the same; the per-query rows of the
+// epilogue (the merged indices, the azimuths, the sorted neighbours).
+__host__ __device__ inline int span_floats(int q, const Opts& o) {
+  return (q * o.g * o.c + 3 + 3) & ~3;
+}
+__host__ __device__ inline int row_floats(const Opts& o) { return (o.g + o.skip) + 4 * o.g; }
+__host__ __device__ inline int rows_floats(int q, const Opts& o) {
+  return (q * row_floats(o) + 3) & ~3;
+}
 
-  __host__ __device__ static TqLayout of(const Opts& o, bool scan_only) {
-    TqLayout t;
-    t.stage = scan_only ? 0 : (kTqQueries * o.g * o.c + 3 + 3) & ~3;
-    t.row = scan_only ? 0 : (o.g + o.skip) + 4 * o.g;
-    return t;
-  }
-  __host__ __device__ size_t bytes() const {
-    return sizeof(float) * (4 * kTqTile + stage + ((kTqQueries * row + 3) & ~3));
-  }
-};
-
-template <int KMAX, bool kFloor>
-__global__ void __launch_bounds__(kTqQueries * kTqLanes)
-    umbrella_tq_kernel(const float* __restrict__ xyz,
-                       const int* __restrict__ valid, int n, Opts o,
-                       float* __restrict__ out) {
-  constexpr int L = kTqLanes;
-  extern __shared__ float4 smem4[];
-  float4* tile = smem4;
-  const TqLayout lay = TqLayout::of(o, kFloor);
-  float* stage = reinterpret_cast<float*>(smem4 + kTqTile);
-  float* rows = stage + lay.stage;
-
-  const int b = blockIdx.y;
-  const int sub = threadIdx.x & (L - 1);
-  const int ql = threadIdx.x / L;
-  const int q0 = blockIdx.x * kTqQueries;
-  const int q = q0 + ql;
-  const int nv = valid == nullptr ? n : valid[b];
-  const int k = o.g + o.skip;
-  const float* src = xyz + (size_t)b * n * 3;
-  // a group past N scans, merges and fans all the same: the shuffles need
-  // the whole warp, the barriers the whole block; only its stores are cut
-  const bool live = q < n;
-  const float qx = live ? src[q * 3 + 0] : 0.0f;
-  const float qy = live ? src[q * 3 + 1] : 0.0f;
-  const float qz = live ? src[q * 3 + 2] : 0.0f;
-
-  // each lane: every L-th candidate, in index order, into its own k best.
-  // A chunk of 32 of the lane's candidates is screened against an upper
-  // bound on the query's k-th distance, taken at the chunk's start, into a
-  // bit mask; the marked ones are then inserted in index order, each
-  // against the lane's own current k-th.  A warp so takes the insertion
-  // path once per marked candidate of its busiest lane, not once per
-  // candidate that any lane inserts.  The bound is the group's least k-th
-  // (min over its lanes of each list's end): a candidate above it cannot
-  // reach the merged k best; one equal to it may, so it is kept.
-  knn_topk::List<KMAX> best;
+// The screened scan: one query's KMAX best over the whole cloud src [n, 3],
+// split over an aligned group of L lanes (lane `sub`), the cloud staged
+// through `tile` (kTile float4s) by all NT threads of the block, every one
+// of which calls it (the barriers).
+//
+// Each lane takes every L-th candidate, in index order, into its own k
+// best.  A chunk of U of the lane's candidates is screened against an upper
+// bound on the query's k-th distance, taken at the chunk's start, into a
+// bit mask; the marked ones are then inserted in index order, each against
+// the lane's own current k-th.  A warp so takes the insertion path once per
+// marked candidate of its busiest lane, not once per candidate that any
+// lane inserts.  The bound is the group's least k-th (min over its lanes of
+// each list's end): a candidate above it cannot reach the merged k best;
+// one equal to it may, so it is kept.
+template <int L, int NT, int KMAX>
+__device__ __forceinline__ void screened_scan(const float* __restrict__ src, int n, int nv,
+                                              float4* tile, float qx, float qy, float qz,
+                                              int sub, knn_topk::List<KMAX>& best) {
+  constexpr int U = kTile / L < 32 ? kTile / L : 32;
   best.reset();
-  for (int base = 0; base < n; base += kTqTile) {
+  for (int base = 0; base < n; base += kTile) {
     __syncthreads();
-    for (int t = threadIdx.x; t < kTqTile && base + t < n; t += kTqQueries * L) {
+    for (int t = threadIdx.x; t < kTile && base + t < n; t += NT) {
       const float* p = src + (size_t)(base + t) * 3;
       tile[t] = make_float4(p[0], p[1], p[2], 0.0f);
     }
     __syncthreads();
-    const int len = min(kTqTile, n - base);
+    const int len = min(kTile, n - base);
     const int lv = min(len, nv - base);  // the tile's valid candidates; the rest sit at 1e10
-    for (int t0 = 0; t0 < len; t0 += 32 * L) {  // the same trip count on every lane
+    for (int t0 = 0; t0 < len; t0 += U * L) {  // the same trip count on every lane
       float w = best.worst();
 #pragma unroll
       for (int off = L / 2; off > 0; off >>= 1)
         w = fminf(w, __shfl_xor_sync(knn_topk::kFullMask, w, off));
       unsigned marked = 0;
       const float4* tp = tile + t0 + sub;
-      if (t0 + 32 * L <= lv) {  // a whole chunk of valid candidates
+      if (t0 + U * L <= lv) {  // a whole chunk of valid candidates
 #pragma unroll
-        for (int u = 0; u < 32; ++u) {
+        for (int u = 0; u < U; ++u) {
           const float4 p = tp[u * L];
           if (knn_topk::dist2(p.x, p.y, p.z, qx, qy, qz) <= w) marked |= 1u << u;
         }
       } else {
 #pragma unroll
-        for (int u = 0; u < 32; ++u) {
+        for (int u = 0; u < U; ++u) {
           const int t = t0 + sub + u * L;
           if (t < len) {
             const float4 p = tp[u * L];
@@ -466,129 +363,239 @@ __global__ void __launch_bounds__(kTqQueries * kTqLanes)
       }
     }
   }
-
-  if constexpr (kFloor) {
-    // the scan floor: the k best distances summed, so nothing is elided
-    float acc = 0.0f;
-    knn_topk::merge_lanes<L>(best, k, [&](int, float d, int) { acc += d; });
-    if (live && sub == 0) out[(size_t)b * n + q] = acc;
-    return;
-  } else {
-    const int gc = o.g * o.c;
-    float* dst = out + ((size_t)b * n + q0) * gc;
-    // stage[pad + e] holds the span's element e (knn_topk::store_span)
-    const int pad = knn_topk::span_pad(dst);
-    float* qout = stage + pad + ql * gc;
-    int* nb = reinterpret_cast<int*>(rows + ql * lay.row);
-    float* phi = rows + ql * lay.row + k;
-    // the merged (d^2, index) pairs reach every lane of the group; lane
-    // r mod L keeps pair r's index (a missing slot: point 0) in the row
-    knn_topk::merge_lanes<L>(best, k, [&](int r, float d, int i) {
-      if ((r & (L - 1)) == sub) nb[r] = d >= kBig ? 0 : i;
-    });
-    __syncwarp();
-    lane_fan_features<L>(nb + o.skip, src, qx, qy, qz, o, phi, phi + o.g, phi + 2 * o.g,
-                         phi + 3 * o.g, sub, qout);
-    __syncthreads();
-    knn_topk::store_span(dst, stage, min(kTqQueries, n - q0) * gc, threadIdx.x,
-                         kTqQueries * L);
-  }
 }
 
-template <int KMAX>
-__global__ void __launch_bounds__(kFullWarps * 32)
-    umbrella_full_kernel(const float* __restrict__ xyz,
-                         const int* __restrict__ valid, int n, int k, Opts o,
-                         float* __restrict__ out) {
-  __shared__ float tx[kTile], ty[kTile], tz[kTile];
+// One query's fans from its group's lane lists (screened_scan's): the
+// k-round merge, then the lane epilogue into qout (G*C floats of shared
+// memory).  row: the query's shared row (row_floats).  Called by every lane
+// of the warp.
+template <int L, int KMAX>
+__device__ __forceinline__ void query_fans(knn_topk::List<KMAX>& best,
+                                           const float* __restrict__ src, float qx, float qy,
+                                           float qz, const Opts& o, int sub, float* row,
+                                           float* qout) {
+  const int k = o.g + o.skip;
+  int* nb = reinterpret_cast<int*>(row);
+  float* phi = row + k;
+  // the merged (d^2, index) pairs reach every lane of the group; lane
+  // r mod L keeps pair r's index (a missing slot: point 0) in the row
+  knn_topk::merge_lanes<L>(best, k, [&](int r, float d, int i) {
+    if ((r & (L - 1)) == sub) nb[r] = d >= kBig ? 0 : i;
+  });
+  __syncwarp();
+  lane_fan_features<L>(nb + o.skip, src, qx, qy, qz, o, phi, phi + o.g, phi + 2 * o.g,
+                       phi + 3 * o.g, sub, knn_topk::kFullMask, qout);
+}
+
+// The body of the tq and full kernels: Q queries a block, L lanes each, the
+// block's contiguous span of the output staged and written by store_span.
+template <int L, int Q, int KMAX>
+__device__ __forceinline__ void group_block(const float* __restrict__ xyz,
+                                            const int* __restrict__ valid, int n, const Opts& o,
+                                            float* __restrict__ out) {
+  constexpr int NT = Q * L;
+  extern __shared__ float4 smem4[];
+  float4* tile = smem4;
+  float* stage = reinterpret_cast<float*>(smem4 + kTile);
+  float* rows = stage + span_floats(Q, o);
+
   const int b = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int q = blockIdx.x * kFullWarps + (threadIdx.x >> 5);
+  const int sub = threadIdx.x & (L - 1);
+  const int ql = threadIdx.x / L;
+  const int q0 = blockIdx.x * Q;
+  const int q = q0 + ql;
   const int nv = valid == nullptr ? n : valid[b];
   const float* src = xyz + (size_t)b * n * 3;
-  const bool live = q < n;  // uniform over the warp
+  // a group past N scans, merges and fans all the same: the shuffles need
+  // the whole warp, the barriers the whole block; only its stores are cut
+  const bool live = q < n;
   const float qx = live ? src[q * 3 + 0] : 0.0f;
   const float qy = live ? src[q * 3 + 1] : 0.0f;
   const float qz = live ? src[q * 3 + 2] : 0.0f;
-
-  // each lane: every 32nd candidate, in index order, its own k best
   knn_topk::List<KMAX> best;
-  best.reset();
-  for (int base = 0; base < n; base += kTile) {
-    __syncthreads();
-    for (int t = threadIdx.x; t < kTile && base + t < n; t += kFullWarps * 32) {
-      const int j = base + t;
-      tx[t] = src[j * 3 + 0];
-      ty[t] = src[j * 3 + 1];
-      tz[t] = src[j * 3 + 2];
-    }
-    __syncthreads();
-    const int len = min(kTile, n - base);
-    for (int t = lane; t < len; t += 32) {
-      const int j = base + t;
-      float d2 = knn_topk::dist2(tx[t], ty[t], tz[t], qx, qy, qz);
-      if (j >= nv) d2 = kBig;
-      if (d2 < best.worst()) best.insert(d2, j);
-    }
-  }
-  if (!live) return;
-
-  // k rounds of the warp's arg-min on (d^2, index) (knn_topk.cuh)
-  knn_topk::List<KMAX> merged;
-  merged.reset();
-  knn_topk::merge_lanes<32>(best, k, [&](int r, float d, int i) {
-    merged.d[r] = d;
-    merged.i[r] = i;
-  });
-  if (lane != 0) return;
-  emit<KMAX>(merged, src, qx, qy, qz, o, out + ((size_t)b * n + q) * o.g * o.c);
+  screened_scan<L, NT>(src, n, nv, tile, qx, qy, qz, sub, best);
+  const int gc = o.g * o.c;
+  float* dst = out + ((size_t)b * n + q0) * gc;
+  // stage[pad + e] holds the span's element e (knn_topk::store_span)
+  const int pad = knn_topk::span_pad(dst);
+  query_fans<L>(best, src, qx, qy, qz, o, sub, rows + ql * row_floats(o), stage + pad + ql * gc);
+  __syncthreads();
+  knn_topk::store_span(dst, stage, min(Q, n - q0) * gc, threadIdx.x, NT);
 }
 
+template <int KMAX, bool kFloor>
+__global__ void __launch_bounds__(kTqQueries * kTqLanes)
+    umbrella_tq_kernel(const float* __restrict__ xyz,
+                       const int* __restrict__ valid, int n, Opts o,
+                       float* __restrict__ out) {
+  constexpr int L = kTqLanes;
+  if constexpr (kFloor) {
+    // the scan floor: the k best distances summed, so nothing is elided
+    extern __shared__ float4 smem4[];
+    const int b = blockIdx.y;
+    const int sub = threadIdx.x & (L - 1);
+    const int q = blockIdx.x * kTqQueries + threadIdx.x / L;
+    const bool live = q < n;
+    const float* src = xyz + (size_t)b * n * 3;
+    knn_topk::List<KMAX> best;
+    screened_scan<L, kTqQueries * L>(src, n, valid == nullptr ? n : valid[b], smem4,
+                                     live ? src[q * 3 + 0] : 0.0f, live ? src[q * 3 + 1] : 0.0f,
+                                     live ? src[q * 3 + 2] : 0.0f, sub, best);
+    float acc = 0.0f;
+    knn_topk::merge_lanes<L>(best, o.g + o.skip, [&](int, float d, int) { acc += d; });
+    if (live && sub == 0) out[(size_t)b * n + q] = acc;
+  } else {
+    group_block<L, kTqQueries, KMAX>(xyz, valid, n, o, out);
+  }
+}
+
+template <int KMAX, int W>
+__global__ void __launch_bounds__(W * 32)
+    umbrella_full_kernel(const float* __restrict__ xyz,
+                         const int* __restrict__ valid, int n, Opts o,
+                         float* __restrict__ out) {
+  group_block<32, W, KMAX>(xyz, valid, n, o, out);
+}
+
+// One query's G*C row at dst from the lanes' epilogue output in stage
+// (stage[pad + e], pad = span_pad(dst)): the group's L lanes store it.
+template <int L>
+__device__ __forceinline__ void store_row(float* __restrict__ dst, const float* stage, int gc,
+                                          int sub) {
+  __syncwarp(group_mask<L>());
+  knn_topk::store_span(dst, stage, gc, sub, L);
+}
+
+// The window pass: a block takes 32 queries of slab blockIdx.x / 4 of
+// sample blockIdx.y, four lanes each, against the slab's 3-slab window.
 template <int KMAX>
-__global__ void __launch_bounds__(kSlab)
-    umbrella_slab_kernel(const float4* __restrict__ table,
+__global__ void __launch_bounds__(kTqQueries * kTqLanes)
+    umbrella_slab_kernel(const int* __restrict__ order,
                          const float* __restrict__ xyz,
-                         const int* __restrict__ valid, int n, int k, Opts o,
-                         float* __restrict__ out, float* __restrict__ kth,
-                         float* __restrict__ margin) {
-  __shared__ float4 win[kWindow];
+                         const int* __restrict__ valid, int n, Opts o,
+                         float* __restrict__ out, int* __restrict__ resolved,
+                         int* __restrict__ fails) {
+  constexpr int L = kTqLanes, Q = kTqQueries;
+  extern __shared__ float4 smem4[];
+  float4* win = smem4;
+  float* stage = reinterpret_cast<float*>(smem4 + kWindow);
+  float* rows = stage + Q * span_floats(1, o);
   const int b = blockIdx.y;
-  const int s = blockIdx.x;
+  const int s = blockIdx.x / (kSlab / Q);
   const int n_slabs = n / kSlab;
   const int c0 = min(max(s - 1, 0), n_slabs - 3);
   const int nv = valid == nullptr ? n : valid[b];
-  const float4* tb = table + (size_t)b * n;
-  for (int t = threadIdx.x; t < kWindow; t += kSlab) win[t] = tb[c0 * kSlab + t];
+  const int* ob = order + (size_t)b * n;
+  const float* src = xyz + (size_t)b * n * 3;
+  // the window as (x, y, z, original index bits)
+  for (int t = threadIdx.x; t < kWindow; t += Q * L) {
+    const int j = ob[c0 * kSlab + t];
+    win[t] = make_float4(src[j * 3 + 0], src[j * 3 + 1], src[j * 3 + 2], __int_as_float(j));
+  }
   __syncthreads();
 
-  const float4 qp = tb[s * kSlab + threadIdx.x];
-  const int qi = (int)qp.w;  // the query's original index
+  const int sub = threadIdx.x & (L - 1);
+  const int ql = threadIdx.x / L;
+  const int qi = ob[blockIdx.x * Q + ql];  // the query's original index
+  const float qx = src[qi * 3 + 0], qy = src[qi * 3 + 1], qz = src[qi * 3 + 2];
+  const int k = o.g + o.skip;
+  // lane sub: window slots t = sub (mod L), screened 32 at a time as in
+  // screened_scan, the query's own slab first (the nearest x, so the bound
+  // tightens before the other two slabs).  x-sorted, not index order: the
+  // list inserts by the (d^2, original index) pair, whatever the order.
   knn_topk::List<KMAX> best;
   best.reset();
-  for (int t = 0; t < kWindow; ++t) {
-    const float4 p = win[t];
-    const int j = (int)p.w;
-    float d2 = knn_topk::dist2(p.x, p.y, p.z, qp.x, qp.y, qp.z);
-    if (j >= nv) d2 = kBig;
-    // x-sorted, not index order: the list compares (d^2, original index)
-    best.insert(d2, j);
-  }
-  float kd = kBig;
+  for (int c = 0; c < 3; ++c) {
+    static_assert(kSlab == 32 * L, "a slab is one chunk of the group's lanes");
+    const int t0 = ((s - c0 + c) % 3) * kSlab;
+    float w = best.worst();
 #pragma unroll
-  for (int r = 0; r < KMAX; ++r)
-    if (r == k - 1) kd = fminf(best.d[r], kBig);
-  // margin to the nearest x-excluded point: points left of the window exist
-  // iff c0 > 0, right of it iff c0 < n_slabs - 3 and the window's last point
-  // is valid (invalid points sort last)
+    for (int off = L / 2; off > 0; off >>= 1)
+      w = fminf(w, __shfl_xor_sync(knn_topk::kFullMask, w, off));
+    const float4* tp = win + t0 + sub;
+    unsigned marked = 0;
+#pragma unroll
+    for (int u = 0; u < 32; ++u) {
+      const float4 p = tp[u * L];
+      const float d2 =
+          __float_as_int(p.w) < nv ? knn_topk::dist2(p.x, p.y, p.z, qx, qy, qz) : kBig;
+      if (d2 <= w) marked |= 1u << u;
+    }
+    while (marked) {
+      const int u = __ffs(marked) - 1;
+      marked &= marked - 1;
+      const float4 p = tp[u * L];
+      const int j = __float_as_int(p.w);
+      best.insert_any_order(j < nv ? knn_topk::dist2(p.x, p.y, p.z, qx, qy, qz) : kBig, j);
+    }
+  }
+  int* nb = reinterpret_cast<int*>(rows + ql * row_floats(o));
+  float kd = kBig;
+  knn_topk::merge_lanes<L>(best, k, [&](int r, float d, int i) {
+    if ((r & (L - 1)) == sub) nb[r] = d >= kBig ? 0 : i;
+    if (r == k - 1) kd = fminf(d, kBig);
+  });
+  // the guard (umbrella.py:827-830): the k-th distance must clear the
+  // margin to the nearest x-excluded point.  Points left of the window
+  // exist iff c0 > 0, right of it iff c0 < n_slabs - 3 and the window's last
+  // point is valid (invalid points sort last).
   const float wlo = win[0].x, whi = win[kWindow - 1].x;
-  const bool right_valid = (int)win[kWindow - 1].w < nv;
-  const float ml = c0 > 0 ? qp.x - wlo : kBig;
-  const float mr = (c0 < n_slabs - 3 && right_valid) ? whi - qp.x : kBig;
-  const size_t row = (size_t)b * n + qi;
-  kth[row] = kd;
-  margin[row] = fmaxf(fminf(ml, mr), 0.0f);
-  emit<KMAX>(best, xyz + (size_t)b * n * 3, qp.x, qp.y, qp.z, o,
-             out + row * o.g * o.c);
+  const bool right_valid = __float_as_int(win[kWindow - 1].w) < nv;
+  const float ml = c0 > 0 ? qx - wlo : kBig;
+  const float mr = (c0 < n_slabs - 3 && right_valid) ? whi - qx : kBig;
+  const float m = 0.999f * fmaxf(fminf(ml, mr), 0.0f);
+  if ((kd >= m * m || kd >= kBig) && qi < nv) {
+    // the re-solve pass writes this query's row
+    if (sub == 0) fails[(size_t)b * n + atomicAdd(resolved + b, 1)] = qi;
+    return;
+  }
+  // a good query's group goes on alone: the warp's other groups may be gone
+  const unsigned mask = group_mask<L>();
+  __syncwarp(mask);
+  const int gc = o.g * o.c;
+  float* dst = out + ((size_t)b * n + qi) * gc;
+  float* qstage = stage + ql * span_floats(1, o);
+  float* phi = reinterpret_cast<float*>(nb) + k;
+  lane_fan_features<L>(nb + o.skip, src, qx, qy, qz, o, phi, phi + o.g, phi + 2 * o.g,
+                       phi + 3 * o.g, sub, mask, qstage + knn_topk::span_pad(dst));
+  store_row<L>(dst, qstage, gc, sub);
+}
+
+// The re-solve pass: the listed queries of sample blockIdx.y, 32 a block,
+// the blocks striding over resolved[b].
+template <int KMAX>
+__global__ void __launch_bounds__(kTqQueries * kTqLanes)
+    umbrella_slab_resolve_kernel(const float* __restrict__ xyz,
+                                 const int* __restrict__ valid, int n, Opts o,
+                                 const int* __restrict__ resolved,
+                                 const int* __restrict__ fails, float* __restrict__ out) {
+  constexpr int L = kTqLanes, Q = kTqQueries;
+  extern __shared__ float4 smem4[];
+  float4* tile = smem4;
+  float* stage = reinterpret_cast<float*>(smem4 + kTile);
+  float* rows = stage + Q * span_floats(1, o);
+  const int b = blockIdx.y;
+  const int sub = threadIdx.x & (L - 1);
+  const int ql = threadIdx.x / L;
+  const int nv = valid == nullptr ? n : valid[b];
+  const float* src = xyz + (size_t)b * n * 3;
+  const int count = resolved[b];
+  const int gc = o.g * o.c;
+  float* qstage = stage + ql * span_floats(1, o);
+  for (int j0 = blockIdx.x * Q; j0 < count; j0 += gridDim.x * Q) {
+    // a group past the list scans all the same (the barriers); no store
+    const bool live = j0 + ql < count;
+    const int qi = live ? fails[(size_t)b * n + j0 + ql] : 0;
+    const float qx = src[qi * 3 + 0], qy = src[qi * 3 + 1], qz = src[qi * 3 + 2];
+    knn_topk::List<KMAX> best;
+    screened_scan<L, Q * L>(src, n, nv, tile, qx, qy, qz, sub, best);
+    float* dst = out + ((size_t)b * n + qi) * gc;
+    query_fans<L>(best, src, qx, qy, qz, o, sub, rows + ql * row_floats(o),
+                  qstage + knn_topk::span_pad(dst));
+    if (live) {
+      store_row<L>(dst, qstage, gc, sub);
+    }
+  }
 }
 
 // Opts from the entry's flags; false for a shape the kernels do not take
@@ -613,6 +620,12 @@ int dispatch(int k, F launch) {
   return launch(std::integral_constant<int, 17>{});
 }
 
+// bytes of shared memory: every layout stays under the default 48 KB for
+// G <= 16, C <= 10 (tq) and G * C <= 128 (full, slab)
+size_t smem_bytes(int tile_float4s, int stage_floats, int queries, const Opts& o) {
+  return sizeof(float) * (4 * tile_float4s + stage_floats + rows_floats(queries, o));
+}
+
 template <bool kFloor>
 int tq_entry(const float* xyz, const int* valid, int batch, int n, int k, int skip, int rotate,
              int dist, int seg, float* out, cudaStream_t stream) {
@@ -620,7 +633,8 @@ int tq_entry(const float* xyz, const int* valid, int batch, int n, int k, int sk
   if (!make_opts(k, skip, rotate, dist, seg, &o) || o.g > kMaxFans)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((n + kTqQueries - 1) / kTqQueries, batch);
-  const size_t smem = TqLayout::of(o, kFloor).bytes();  // under 48 KB: G <= 16, C <= 10
+  const size_t smem = kFloor ? sizeof(float4) * kTile
+                             : smem_bytes(kTile, span_floats(kTqQueries, o), kTqQueries, o);
   return dispatch(k, [&](auto kc) {
     umbrella_tq_kernel<decltype(kc)::value, kFloor>
         <<<grid, kTqQueries * kTqLanes, smem, stream>>>(xyz, valid, n, o, out);
@@ -628,9 +642,23 @@ int tq_entry(const float* xyz, const int* valid, int batch, int n, int k, int sk
   });
 }
 
+template <int W, int KMAX>
+int full_launch(const float* xyz, const int* valid, int batch, int n, const Opts& o, float* out,
+                cudaStream_t stream) {
+  const dim3 grid((n + W - 1) / W, batch);
+  umbrella_full_kernel<KMAX, W><<<grid, W * 32, smem_bytes(kTile, span_floats(W, o), W, o),
+                                  stream>>>(xyz, valid, n, o, out);
+  return (int)cudaGetLastError();
+}
+
+bool slab_opts(int n, int k, int skip, int rotate, int dist, int seg, Opts* o) {
+  return make_opts(k, skip, rotate, dist, seg, o) && o->g * o->c <= kMaxLanes &&
+         n % kSlab == 0 && n >= kWindow;
+}
+
 }  // namespace
 
-// All three: xyz [B, N, 3] f32, valid [B] i32 or null, k the kNN size
+// All of them: xyz [B, N, 3] f32, valid [B] i32 or null, k the kNN size
 // (k <= 17), skip / rotate / dist / seg the flags of the entry
 // (drop_self, rotate, return_dist, style == 'seg'); out [B, N, G, C] f32.
 // Each returns cudaGetLastError(), or cudaErrorInvalidValue for a shape it
@@ -661,31 +689,62 @@ extern "C" int repsurf_umbrella_full(const float* xyz, const int* valid,
   Opts o;
   if (!make_opts(k, skip, rotate, dist, seg, &o) || o.g * o.c > kMaxLanes)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + kFullWarps - 1) / kFullWarps, batch);
   return dispatch(k, [&](auto kc) {
-    umbrella_full_kernel<decltype(kc)::value>
-        <<<grid, kFullWarps * 32, 0, stream>>>(xyz, valid, n, k, o, out);
+    return full_launch<kFullWarps, decltype(kc)::value>(xyz, valid, batch, n, o, out, stream);
+  });
+}
+
+// The full kernel at `warps` queries a block (8, 16 or 32; k <= 9): the
+// block-size sweep behind kFullWarps, a measurement.
+extern "C" int repsurf_umbrella_full_warps(const float* xyz, const int* valid, int batch, int n,
+                                           int k, int skip, int rotate, int dist, int seg,
+                                           int warps, float* out, cudaStream_t stream) {
+  Opts o;
+  if (!make_opts(k, skip, rotate, dist, seg, &o) || o.g * o.c > kMaxLanes || k > 9)
+    return (int)cudaErrorInvalidValue;
+  if (warps == 8) return full_launch<8, 9>(xyz, valid, batch, n, o, out, stream);
+  if (warps == 16) return full_launch<16, 9>(xyz, valid, batch, n, o, out, stream);
+  if (warps == 32) return full_launch<32, 9>(xyz, valid, batch, n, o, out, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The slab's window pass.  G * C <= 128, N % 128 == 0 and N >= 384.  order
+// [B, N] i32: each sample's point indices x-sorted (invalid points last);
+// out in the original point order, the rows of the failing queries left
+// unwritten; resolved [B] i32, zero on entry, their count on exit; fails
+// [B, N] i32, their indices in its first resolved[b] slots (in no set
+// order).
+extern "C" int repsurf_umbrella_slab(const int* order, const float* xyz,
+                                     const int* valid, int batch, int n,
+                                     int k, int skip, int rotate, int dist,
+                                     int seg, float* out, int* resolved, int* fails,
+                                     cudaStream_t stream) {
+  Opts o;
+  if (!slab_opts(n, k, skip, rotate, dist, seg, &o)) return (int)cudaErrorInvalidValue;
+  const dim3 grid(n / kTqQueries, batch);
+  const size_t smem = smem_bytes(kWindow, kTqQueries * span_floats(1, o), kTqQueries, o);
+  return dispatch(k, [&](auto kc) {
+    umbrella_slab_kernel<decltype(kc)::value><<<grid, kTqQueries * kTqLanes, smem, stream>>>(
+        order, xyz, valid, n, o, out, resolved, fails);
     return (int)cudaGetLastError();
   });
 }
 
-// G * C <= 128, N % 128 == 0 and N >= 384.  table [B, N, 4] f32: each
-// sample x-sorted (invalid points last), rows (x, y, z, original index);
-// out, kth [B, N] and margin [B, N] in the original point order.
-extern "C" int repsurf_umbrella_slab(const float* table, const float* xyz,
-                                     const int* valid, int batch, int n,
-                                     int k, int skip, int rotate, int dist,
-                                     int seg, float* out, float* kth,
-                                     float* margin, cudaStream_t stream) {
+// The slab's re-solve pass, on the window pass's outputs: the rows of the
+// listed queries over the whole valid cloud; `blocks` blocks a sample stride
+// over its list.
+extern "C" int repsurf_umbrella_slab_resolve(const float* xyz, const int* valid, int batch,
+                                             int n, int k, int skip, int rotate, int dist,
+                                             int seg, const int* resolved, const int* fails,
+                                             int blocks, float* out, cudaStream_t stream) {
   Opts o;
-  if (!make_opts(k, skip, rotate, dist, seg, &o) || o.g * o.c > kMaxLanes ||
-      n % kSlab != 0 || n < kWindow)
+  if (!slab_opts(n, k, skip, rotate, dist, seg, &o) || blocks < 1)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(n / kSlab, batch);
+  const dim3 grid(blocks, batch);
+  const size_t smem = smem_bytes(kTile, kTqQueries * span_floats(1, o), kTqQueries, o);
   return dispatch(k, [&](auto kc) {
-    umbrella_slab_kernel<decltype(kc)::value><<<grid, kSlab, 0, stream>>>(
-        reinterpret_cast<const float4*>(table), xyz, valid, n, k, o, out, kth,
-        margin);
+    umbrella_slab_resolve_kernel<decltype(kc)::value>
+        <<<grid, kTqQueries * kTqLanes, smem, stream>>>(xyz, valid, n, o, resolved, fails, out);
     return (int)cudaGetLastError();
   });
 }

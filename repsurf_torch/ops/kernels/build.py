@@ -45,9 +45,14 @@ _SIGNATURES = {
     "repsurf_umbrella_tq": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
     "repsurf_umbrella_tq_scan_floor": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
     "repsurf_umbrella_full": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
+    "repsurf_umbrella_full_warps": (_I, [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
     "repsurf_umbrella_slab": (
         _I,
         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    ),
+    "repsurf_umbrella_slab_resolve": (
+        _I,
+        [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P],
     ),
     "repsurf_ball_feature": (
         _I,

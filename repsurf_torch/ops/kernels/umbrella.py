@@ -3,23 +3,28 @@ their plain PyTorch version.
 
 ``umbrella_features_kernel`` is the counterpart of the JAX package's
 ``umbrella_features_pallas`` (repsurf_tpu/ops/pallas/umbrella.py:866-989),
-with the same arguments, dispatch and refusals.  Three kernels compute one
-function:
+with the same arguments, dispatch and refusals.  Three routes compute one
+function, bit-equal to one another on every row they define:
 
   * 'tq' (replaces ``_umbrella_tq_kernel``): an aligned group of 4 lanes
     per query, the kNN scan and the fan geometry split over the group,
     G <= 16;
-  * 'full' (replaces ``_umbrella_kernel``): one warp per query, G*C <= 128;
+  * 'full' (replaces ``_umbrella_kernel``): one warp per query, the same
+    scan and epilogue over 32 lanes, G*C <= 128;
   * 'slab' (replaces ``_umbrella_slab_kernel``): each sample x-sorted and cut
-    into slabs of 128 points, every query searched in the 3-slab window
-    around its own; a guard flags each query whose k-th neighbour could lie
-    outside the window, and those are re-solved with the brute kNN kernel
-    (``knn.knn_brute``) and the plain composition.  G*C <= 128, N a multiple
-    of 128 and at least 384.
+    into slabs of 128 points (``slab_order``, a torch sort, as the JAX
+    package sorts in XLA), every query searched in the 3-slab window
+    around its own by ``slab_pass``, whose kernel also computes the guard
+    and lists each query whose k-th neighbour could lie outside the window;
+    ``slab_resolve``, a second kernel on the same stream, re-solves the
+    listed queries over the whole cloud.  The host waits on neither.
+    G*C <= 128, N a multiple of 128 and at least 384; rows past a sample's
+    valid count are left as the window found them.
 
 'auto' takes 'tq' for G <= 16, else 'full'; 'slab' runs only when asked.
 ``umbrella_fan_features_plain`` is the one plain version, the composition of
-the geometry functions (geometry/umbrella.py); the entry runs it for a
+the geometry functions (geometry/umbrella.py), and ``slab_guard_plain`` the
+plain replay of the slab's guard; the entry runs the plain version for a
 tensor on the CPU, whatever the impl, and a kernel for a tensor on a CUDA
 device.  Neither applies the per-sample normal inversion;
 geometry.umbrella.umbrella_features does.
@@ -30,23 +35,26 @@ gradient with respect to xyz is that of the plain composition, recomputed
 on the same inputs in the backward pass, for every style.  The stock models
 feed data coordinates, so this backward never runs in them.
 
-Counters: ``umbrella_features_kernel.launches`` counts launches by impl,
-``launches_by_style`` by style; ``slab_resolved`` holds the last slab call's
-[B] count of re-solved queries.
+Counters: ``umbrella_features_kernel.launches`` counts launches by impl (a
+slab call's window pass under 'slab'), ``launches_by_style`` by style,
+``slab_resolve_launches`` the slab's re-solve passes; ``slab_resolved``
+holds the last slab call's [B] count of re-solved queries, on the device.
 """
 
 import torch
 
-from ..gather import index_points
 from ..masking import BIG_DIST2
 from . import build
 from .common import check_launch, counts_i32, cuda_f32, ptr, stream
-from .knn import knn_brute, knn_plain, pairwise_dist2
+from .knn import _sm_count, knn_plain, pairwise_dist2
 
 MAX_FANS = 16  # tq: the JAX auto bound (umbrella.py:909)
 MAX_LANES = 128  # full and slab: G * C (umbrella.py:920-921)
-SLAB = 128  # points per slab, queries per block of the slab kernel
+SLAB = 128  # points per slab
 IMPLS = ("tq", "full", "slab")
+# slab re-solve blocks a call, over all samples, for each SM of the card,
+# and the listed queries a block takes
+_RESOLVE_BLOCKS_PER_SM, _RESOLVE_QUERIES = 8, 32
 
 
 def fan_shape(k, drop_self, return_dist):
@@ -69,23 +77,31 @@ def umbrella_fan_features_plain(xyz, k, drop_self=False, rotate=False, return_di
                                 knn_fn=knn_plain)
 
 
-def slab_table(xyz, valid=None):
-    """Each sample x-sorted by a stable sort, invalid points last (key
-    +inf), as [B, N, 4] rows (x, y, z, original index) float32."""
-    b, n, _ = xyz.shape
-    col = torch.arange(n, device=xyz.device)
+def slab_order(xyz, valid=None):
+    """Each sample's points by ascending x, a stable sort with invalid
+    points last (key +inf): [B, N] int32 original indices, the window
+    kernel's input (the JAX package sorts in XLA)."""
+    n = xyz.shape[1]
     key = xyz[..., 0]
     if valid is not None:
+        col = torch.arange(n, device=xyz.device)
         key = torch.where(col[None, :] < valid.to(xyz.device)[:, None], key, float("inf"))
-    order = torch.sort(key, dim=1, stable=True).indices
+    return torch.sort(key, dim=1, stable=True).indices.to(torch.int32)
+
+
+def slab_table(xyz, valid=None):
+    """``slab_order`` as the window kernel stages it: [B, N, 4] rows (x, y,
+    z, original index) float32, each sample x-sorted."""
+    order = slab_order(xyz, valid).long()
     rows = torch.gather(xyz, 1, order[..., None].expand(-1, -1, 3))
-    return torch.cat([rows, order.to(torch.float32)[..., None]], dim=-1).contiguous()
+    return torch.cat([rows, order.to(torch.float32)[..., None]], dim=-1)
 
 
 def slab_guard(kth, margin, valid=None):
     """The queries the slab window cannot vouch for (umbrella.py:827-830):
     the k-th squared distance reaches the margin to the nearest excluded x,
-    or no k valid points lay in the window.  [B, N] bool, original order."""
+    or no k valid points lay in the window.  [B, N] bool, original order.
+    The window kernel computes the same test per query."""
     n = kth.shape[1]
     bad = (kth >= (0.999 * margin).square()) | (kth >= BIG_DIST2)
     if valid is not None:
@@ -125,57 +141,60 @@ def slab_guard_plain(xyz, k, valid=None):
     return slab_guard(kth_o, margin_o, valid)
 
 
-def _resolve(feat, bad, xyz, k, drop_self, rotate, return_dist, style, valid):
-    """Re-solve the flagged queries: the brute kNN kernel and the plain
-    composition over its indices (umbrella.py:714-751), scattered into
-    ``feat`` in place.  Returns the [B] count of re-solved queries."""
-    from ...geometry.umbrella import umbrella_for_queries
-
-    count = bad.sum(dim=1)
-    pos = bad.nonzero()  # [T, 2] (sample, point), row-major
-    if pos.shape[0] == 0:
-        return count
-    first = torch.cumsum(count, 0) - count
-    slot = torch.arange(pos.shape[0], device=bad.device) - first[pos[:, 0]]
-    qidx = torch.zeros((bad.shape[0], int(count.max())), dtype=torch.long, device=bad.device)
-    qidx[pos[:, 0], slot] = pos[:, 1]
-    queries = index_points(xyz, qidx)
-    idx, _ = knn_brute(k, xyz, queries, valid=valid)
-    if drop_self:
-        idx = idx[:, :, 1:]
-    fix = umbrella_for_queries(xyz, queries, idx, rotate=rotate, return_dist=return_dist,
-                               style=style)
-    feat[pos[:, 0], pos[:, 1]] = fix[pos[:, 0], slot]
-    return count
-
-
 def _flags(k, drop_self, rotate, return_dist, style):
     return (k, int(drop_self), int(rotate), int(return_dist), int(style == "seg"))
 
 
-def _launch(impl, xyz, valid, k, drop_self, rotate, return_dist, style):
+def slab_pass(xyz, valid, order, k, drop_self=False, rotate=False, return_dist=True,
+              style="cls"):
+    """The slab's window kernel on ``slab_order``'s output: (out, resolved,
+    fails), out [B, N, G, C] with the rows of the failing queries unwritten,
+    ``resolved`` [B] int32 their count, ``fails`` [B, N] int32 their indices
+    in its first ``resolved[b]`` slots, in no set order.  CUDA tensors
+    only; ``valid`` int32 [B] or None."""
     b, n = xyz.shape[0], xyz.shape[1]
     g, c = fan_shape(k, drop_self, return_dist)
-    flags = _flags(k, drop_self, rotate, return_dist, style)
-    lib = build.library()
     out = torch.empty((b, n, g, c), dtype=torch.float32, device=xyz.device)
-    dev = stream(xyz.device)
+    resolved = torch.zeros((b,), dtype=torch.int32, device=xyz.device)
+    fails = torch.empty((b, n), dtype=torch.int32, device=xyz.device)
+    status = build.library().repsurf_umbrella_slab(
+        ptr(order), ptr(xyz), ptr(valid), b, n, *_flags(k, drop_self, rotate, return_dist, style),
+        ptr(out), ptr(resolved), ptr(fails), stream(xyz.device))
+    check_launch(status, "repsurf_umbrella_slab")
+    umbrella_features_kernel.launches["slab"] += 1
+    return out, resolved, fails
+
+
+def slab_resolve(xyz, valid, out, resolved, fails, k, drop_self=False, rotate=False,
+                 return_dist=True, style="cls"):
+    """The slab's re-solve kernel: writes the listed queries' rows of out
+    (``slab_pass``'s outputs) in place, each over the whole valid cloud.  A
+    fixed grid of blocks strides over each sample's count on the device."""
+    b, n = xyz.shape[0], xyz.shape[1]
+    per_sample = -(-_RESOLVE_BLOCKS_PER_SM * _sm_count(xyz.device.index) // b)
+    blocks = min(per_sample, -(-n // _RESOLVE_QUERIES))  # no more than the list can fill
+    status = build.library().repsurf_umbrella_slab_resolve(
+        ptr(xyz), ptr(valid), b, n, *_flags(k, drop_self, rotate, return_dist, style),
+        ptr(resolved), ptr(fails), blocks, ptr(out), stream(xyz.device))
+    check_launch(status, "repsurf_umbrella_slab_resolve")
+    umbrella_features_kernel.slab_resolve_launches += 1
+
+
+def _launch(impl, xyz, valid, k, drop_self, rotate, return_dist, style):
+    args = (k, drop_self, rotate, return_dist, style)
     if impl == "slab":
-        table = slab_table(xyz, valid)
-        kth = torch.empty((b, n), dtype=torch.float32, device=xyz.device)
-        margin = torch.empty_like(kth)
-        status = lib.repsurf_umbrella_slab(ptr(table), ptr(xyz), ptr(valid), b, n, *flags,
-                                           ptr(out), ptr(kth), ptr(margin), dev)
+        out, resolved, fails = slab_pass(xyz, valid, slab_order(xyz, valid), *args)
+        slab_resolve(xyz, valid, out, resolved, fails, *args)
+        umbrella_features_kernel.slab_resolved = resolved
     else:
-        fn = lib.repsurf_umbrella_tq if impl == "tq" else lib.repsurf_umbrella_full
-        status = fn(ptr(xyz), ptr(valid), b, n, *flags, ptr(out), dev)
-    check_launch(status, f"repsurf_umbrella_{impl}")
-    umbrella_features_kernel.launches[impl] += 1
+        b, n = xyz.shape[0], xyz.shape[1]
+        g, c = fan_shape(k, drop_self, return_dist)
+        out = torch.empty((b, n, g, c), dtype=torch.float32, device=xyz.device)
+        fn = getattr(build.library(), f"repsurf_umbrella_{impl}")
+        status = fn(ptr(xyz), ptr(valid), b, n, *_flags(*args), ptr(out), stream(xyz.device))
+        check_launch(status, f"repsurf_umbrella_{impl}")
+        umbrella_features_kernel.launches[impl] += 1
     umbrella_features_kernel.launches_by_style[style] += 1
-    if impl == "slab":
-        umbrella_features_kernel.slab_resolved = _resolve(
-            out, slab_guard(kth, margin, valid), xyz, k, drop_self, rotate, return_dist,
-            style, valid)
     return out
 
 
@@ -263,6 +282,25 @@ def umbrella_tq_scan_floor(xyz, k, drop_self=False, rotate=False, return_dist=Tr
     return out
 
 
+def umbrella_full_warps(xyz, k, warps, drop_self=False, rotate=False, return_dist=True,
+                        style="cls", valid=None):
+    """The full kernel at ``warps`` queries a block (8, 16 or 32; k <= 9)
+    on a CUDA device (repsurf_umbrella_full_warps): the block-size sweep
+    behind the kernel's constant, a measurement; not counted as a launch.
+    Returns [B, N, G, C], the entry's features."""
+    b, n = xyz.shape[0], xyz.shape[1]
+    xyz = cuda_f32(xyz, "xyz", (b, n, 3))
+    valid = counts_i32(valid, b, xyz.device)
+    g, c = fan_shape(k, drop_self, return_dist)
+    out = torch.empty((b, n, g, c), dtype=torch.float32, device=xyz.device)
+    status = build.library().repsurf_umbrella_full_warps(
+        ptr(xyz), ptr(valid), b, n, *_flags(k, drop_self, rotate, return_dist, style), warps,
+        ptr(out), stream(xyz.device))
+    check_launch(status, "repsurf_umbrella_full_warps")
+    return out
+
+
 umbrella_features_kernel.launches = dict.fromkeys(IMPLS, 0)
 umbrella_features_kernel.launches_by_style = {"cls": 0, "seg": 0}
+umbrella_features_kernel.slab_resolve_launches = 0
 umbrella_features_kernel.slab_resolved = None  # [B] on the device, the last slab call's

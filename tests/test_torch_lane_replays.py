@@ -84,18 +84,21 @@ def _umbrella_cloud():
 # --- the umbrella tq kernel --------------------------------------------------
 
 
-TQ_TILE = 512  # umbrella_tq_kernel's candidates per shared tile
-TQ_LANES = 4  # its lanes per query (kTqLanes)
+TQ_TILE = 512  # the candidates of a shared tile (kTile), tq and full alike
+TQ_LANES = 4  # umbrella_tq_kernel's lanes per query (kTqLanes)
+TQ_QUERIES = 32  # its queries per block (kTqQueries)
+FULL_LANES = 32  # umbrella_full_kernel: a warp per query
+FULL_WARPS = 8  # its queries (warps) per block (kFullWarps)
 
 
 def _scan_lists(xyz, valid, lanes, kmax, tile=TQ_TILE):
-    """The kernel's scan: lane s of a query's group takes candidates j = s
-    (mod L) of each tile; per chunk of 32 of them, those within the group's
-    least k-th distance (min over the lanes' list ends, taken at the
-    chunk's start) are marked, then each marked one enters the lane's list
-    (insert_in_order) if it beats the lane's current k-th, in index order.
-    Returns the lists as int64 keys bits(d^2) << 32 | index, a sentinel
-    column appended: [B, N, L, kmax + 1]."""
+    """The kernels' screened scan (screened_scan): lane s of a query's group
+    takes candidates j = s (mod L) of each tile; per chunk of U = min(32,
+    tile / L) of them, those within the group's least k-th distance (min
+    over the lanes' list ends, taken at the chunk's start) are marked, then
+    each marked one enters the lane's list (insert_in_order) if it beats the
+    lane's current k-th, in index order.  Returns the lists as int64 keys
+    bits(d^2) << 32 | index, a sentinel column appended: [B, N, L, kmax + 1]."""
     x = _t(xyz)
     b, n, _ = x.shape
     d2all = pairwise_dist2(x, x)
@@ -103,12 +106,13 @@ def _scan_lists(xyz, valid, lanes, kmax, tile=TQ_TILE):
     dl = torch.full((b, n, lanes, kmax), math.inf)
     il = torch.full((b, n, lanes, kmax), 0x7FFFFFFF, dtype=torch.long)
     sub = torch.arange(lanes)
+    chunk_len = min(32, tile // lanes)
     for base in range(0, n, tile):
         length = min(tile, n - base)
-        for t0 in range(0, length, 32 * lanes):
+        for t0 in range(0, length, chunk_len * lanes):
             w = dl[..., -1].amin(-1, keepdim=True)  # the group's least k-th
             chunk = []
-            for u in range(32):
+            for u in range(chunk_len):
                 t = t0 + sub + u * lanes
                 j = base + torch.clamp(t, max=length - 1)
                 d2 = torch.where(j[None, None, :] < nv, d2all[..., j], torch.tensor(BIG))
@@ -176,12 +180,15 @@ def _put_fan(c_own, rep, style, return_dist):
     return torch.cat([center, polar, normal, pv[..., None]], -1)
 
 
-def _replay_tq(xyz, valid, k, style, return_dist, lanes=TQ_LANES):
-    """umbrella_tq_kernel<KMAX> on the CPU: [B, N, G, C]."""
+def _kmax(k):
+    return 9 if k <= 9 else 17
+
+
+def _lane_epilogue(xyz, keys, style, return_dist, lanes):
+    """lane_fan_features<L> over each query's merged list ``keys`` [B, N, k]:
+    [B, N, G, C]."""
     drop_self = style == "cls"
-    g_fans, _ = fan_shape(k, drop_self, return_dist)
-    kmax = 9 if k <= 9 else 17
-    keys = _merge(_scan_lists(xyz, valid, lanes, kmax), k)
+    g_fans, _ = fan_shape(keys.shape[-1], drop_self, return_dist)
     d2 = (keys >> 32).to(torch.int32).view(torch.float32)
     nb = torch.where(d2 >= BIG, 0, keys & 0xFFFFFFFF)[..., int(drop_self):]  # the row, [B, N, G]
     x = _t(xyz)
@@ -227,6 +234,39 @@ def _replay_tq(xyz, valid, k, style, return_dist, lanes=TQ_LANES):
     return torch.stack(out, dim=2)
 
 
+def _block_spans(feat, queries):
+    """group_block's stores: each block's queries, one contiguous span of
+    the output, staged at the span's 16-byte phase (a stage of
+    span_floats(Q) floats) and written by store_span; every element once.
+    [B, N, G, C] back."""
+    b, n, g, c = feat.shape
+    gc = g * c
+    vals = feat.numpy().reshape(b, n * gc)
+    flat = np.full(b * n * gc, np.nan, np.float32)
+    written = np.zeros(flat.size, np.int64)
+    for bi in range(b):
+        for q0 in range(0, n, queries):
+            off = (bi * n + q0) * gc  # the output's base is 16-byte aligned
+            total = min(queries, n - q0) * gc
+            stage = np.full((queries * gc + 6) & ~3, np.nan, np.float32)
+            stage[off % 4:off % 4 + total] = vals[bi, q0 * gc:q0 * gc + total]
+            _store_span(flat, off, stage, off % 4, total, written)
+    assert (written == 1).all(), "an output element written other than once"
+    return torch.from_numpy(flat.reshape(b, n, g, c))
+
+
+def _replay_group(xyz, valid, k, style, return_dist, lanes, queries):
+    """group_block<L, Q, KMAX> on the CPU (tq: L = 4, Q = 32; full: L = 32,
+    Q = kFullWarps): [B, N, G, C]."""
+    keys = _merge(_scan_lists(xyz, valid, lanes, _kmax(k)), k)
+    return _block_spans(_lane_epilogue(xyz, keys, style, return_dist, lanes), queries)
+
+
+def _replay_tq(xyz, valid, k, style, return_dist):
+    """umbrella_tq_kernel<KMAX> on the CPU: [B, N, G, C]."""
+    return _replay_group(xyz, valid, k, style, return_dist, TQ_LANES, TQ_QUERIES)
+
+
 # G = 2 and 3: lanes without a fan; G = 4: a fan a lane; G > 4: several
 STYLE_K = [(3, "cls"), (3, "seg"), (5, "cls"), (5, "seg"), (9, "cls"), (9, "seg"), (17, "cls"),
            (16, "seg")]
@@ -257,6 +297,34 @@ def test_tq_lane_replay_matches_the_jax_tq_kernel():
     assert skip.mean() <= 1e-2
     got = _replay_tq(xyz, valid, 9, "cls", True).numpy()
     np.testing.assert_allclose(got[~skip], want[~skip], atol=UMB_ATOL, rtol=0)
+
+
+def _full_cloud():
+    """Three samples of 604 points (a tile of 512 and a ragged one; blocks of
+    8 queries and a ragged one): distinct grid points; the first 302
+    points twice, valid 550 (inside the second tile); 4 valid points."""
+    xyz = _grid(73, (3, 604, 3))
+    xyz[1, 302:] = xyz[1, :302]
+    return xyz, np.array([604, 550, 4], np.int32)
+
+
+# the shapes the full kernel takes (G * C <= 128) among k 5, 9, 13, 14
+FULL_CASES = [(k, style, dist) for k in (5, 9, 13, 14) for style in ("cls", "seg")
+              for dist in (True, False)
+              if fan_shape(k, style == "cls", dist)[0] * fan_shape(k, True, dist)[1] <= 128]
+
+
+@pytest.mark.parametrize("k,style,return_dist", FULL_CASES)
+def test_full_lane_replay_is_bit_equal_to_the_plain_composition(k, style, return_dist):
+    """umbrella_full_kernel: the screened scan over 32 lanes (16 candidates a
+    lane a tile), the 32-list merge, one fan a lane, the block's span."""
+    xyz, valid = _full_cloud()
+    want = umbrella_fan_features_plain(_t(xyz), k, drop_self=style == "cls",
+                                       rotate=style == "seg", return_dist=return_dist,
+                                       style=style, valid=_t(valid))
+    got = _replay_group(xyz, valid, k, style, return_dist, FULL_LANES, FULL_WARPS)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
 def test_tq_entry_on_the_cpu_stays_plain():

@@ -3,25 +3,27 @@
 //
 // Replaces repsurf_tpu/ops/pallas/ball_group.py:
 //   * _ball_feat_kernel (wide C) and _ball_feat_t_kernel (C <= 48), the
-//     SA-CD split (ball_feature_kernel): both are TPU layouts of one
-//     function; this one kernel serves both surface-abstraction stages;
-//   * _ball_kernel, the grouping of every channel (ball_group_kernel);
+//     SA-CD split (ball_feature_kernel, ball_feature_kernel_wide): both are
+//     TPU layouts of one function; one body serves both surface-abstraction
+//     stages, instantiated for short and long spans (kWideSpan);
+//   * _ball_kernel, the grouping of every channel (ball_group_kernel,
+//     ball_group_kernel_wide);
 //   * the custom VJPs _ball_feat_bwd and _ball_group_bwd, one scatter-add
 //     of the cotangent through the selection (ball_scatter_kernel).
 //
 // What bounds the forwards on the H100: the grouped output.  At the second
 // stage of the classifier (M = 128, S = 64, C = 141) every query writes
 // S*(C+3) floats, 37 KB, against a scan of at most N = 512 candidates; the
-// kernels are bound by device-memory writes.  The design scans the
-// candidates 32 at a time with one warp ballot, so the in-order selection
-// costs a popcount per hit and stops as soon as S hits are found.  The
-// feature kernel's blocks each take queries of one sample and stage its
-// coordinates in shared memory once, and write each query's pos and feat
-// as contiguous spans of 16-byte stores (see ball_feature_kernel); the
-// row-grouping kernel scans from device memory and writes with
-// consecutive lanes on consecutive addresses.  Each forward can also write
-// the selection, [B, M, S] int32, which the backward reuses instead of
-// searching again.
+// kernels are bound by device-memory writes.  Both forwards are one body
+// (ball_body): blocks of 8 queries of one sample stage its coordinates in
+// shared memory, each warp selects from them 32 candidates a ballot (four
+// independent ballots a step), so the in-order selection costs a popcount
+// per hit and stops as soon as S hits are found (staged_select); each
+// query's grouped channels go out as one contiguous span of 16-byte stores
+// walked without a division per element (walk_span: channels 3.. for the
+// feature kernel, after its pos; every channel for the row grouping).
+// Each forward can also write the selection, [B, M, S] int32, which the
+// backward reuses instead of searching again.
 //
 // Per query (semantics identical to the plain versions in
 // ops/kernels/ball_group.py): the first S valid points, in index order,
@@ -75,78 +77,38 @@
 
 namespace {
 
-constexpr int kWarps = 4;        // ball_group: queries (warps) per block
-constexpr int kFeatWarps = 8;    // ball_feature: queries (warps) per block
-constexpr int kStage = 2048;     // ball_feature: staged points (24 KB)
+constexpr int kBallWarps = 8;    // both forwards: queries (warps) per block
+constexpr int kStage = 2048;     // staged points (24 KB)
 constexpr int kPosStage = 32 * 6 + 4;  // ball_feature: a round of pos, 16-byte slack
 constexpr int kMaxS = 128;
+// A query's span of at least this many floats (16 float4 rounds a lane) takes
+// the wide instantiation of a forward: the walk unrolled 8 times (8 spans'
+// loads in flight a lane) and at most 64 registers (4 blocks an SM); a
+// shorter one the narrow (no unroll, the compiler's registers).  Each won
+// at its SA shape for both forwards (device time on the H100 against
+// unrolls of 1, 2, 4 and 8 and register caps of 4, 5 and 6 blocks an SM;
+// an unrolled walk over a short span only adds registers).
+constexpr int kWideSpan = 2048;
 constexpr int kScatterThreads = 512;
 
-// The warp's selection for one query: slots[0 .. min(count, nsample)) get
-// the first in-radius valid points in index order; returns count (which
-// may exceed nsample).  Called by all 32 lanes together.
-__device__ int ball_select(const float* __restrict__ src, int nv, float qx,
-                           float qy, float qz, float r2, int nsample,
-                           int* slots, int lane) {
-  int count = 0;
-  for (int base = 0; base < nv && count < nsample; base += 32) {
-    const int j = base + lane;
-    bool hit = false;
-    if (j < nv) {
-      const float dx = src[j * 3 + 0] - qx;
-      const float dy = src[j * 3 + 1] - qy;
-      const float dz = src[j * 3 + 2] - qz;
-      hit = dx * dx + dy * dy + dz * dz <= r2;
-    }
-    const unsigned mask = __ballot_sync(0xffffffffu, hit);
-    const int slot = count + __popc(mask & ((1u << lane) - 1u));
-    if (hit && slot < nsample) slots[slot] = j;
-    count += __popc(mask);
-  }
-  __syncwarp();
-  return count;
-}
-
-// The feature kernel: blocks of kFeatWarps queries of one sample, a warp a
-// query.  The block stages its sample's valid coordinates in shared memory
-// as three planes (kStage points at a time), each warp selects from them as
-// ball_select does (32 candidates a ballot, four ballots a step, hits in
-// index order, stop after the step that reaches S hits), then writes its
-// query's outputs as contiguous spans: pos through a shared stage of 32
-// slots at a time, feat walked element by element over its [S, C-3] span,
-// both with 16-byte stores (knn_topk::store_span for pos;
-// feat four elements a lane, a scalar head and tail around the aligned
-// body).  The walk keeps each lane's (slot, channel) and steps it by 128
-// elements with a carry: no integer division per element.
-__global__ void __launch_bounds__(kFeatWarps * 32)
-    ball_feature_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz,
-                        const float* __restrict__ tcat, const int* __restrict__ valid, int n,
-                        int m, int c, int nsample, float r2, int return_polar,
-                        float* __restrict__ pos, float* __restrict__ feat,
-                        int* __restrict__ sel_out) {
-  __shared__ float px[kStage], py[kStage], pz[kStage];
-  __shared__ int sel[kFeatWarps][kMaxS];
-  __shared__ __align__(16) float pstage[kFeatWarps][kPosStage];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.y;
-  const int mq = blockIdx.x * kFeatWarps + warp;
-  const bool live = mq < m;  // uniform over the warp
-  const int nv = valid == nullptr ? n : valid[b];
-  const float* src = xyz + (size_t)b * n * 3;
-  const size_t query = (size_t)b * m + (live ? mq : 0);
-  const float qx = new_xyz[query * 3 + 0];
-  const float qy = new_xyz[query * 3 + 1];
-  const float qz = new_xyz[query * 3 + 2];
-  int* slots = sel[warp];
-
-  // the selection: slots[0 .. min(count, nsample)) get the first in-radius
-  // valid points in index order
+// The staged selection, shared by both forwards; called by every thread of
+// the block (it holds the block's barriers).  The block stages its sample's
+// valid coordinates in shared memory as three planes (kStage points at a
+// time); each live warp tests 32 candidates a ballot, four independent
+// ballots a step, puts hits in index order, and stops after the step that
+// reaches nsample hits; the block stops staging once no warp needs more.
+// slots[0 .. min(count, nsample)) get the first in-radius valid points in
+// index order; returns count (which may exceed nsample).  On return the
+// stage holds the whole valid cloud when nv <= kStage.
+__device__ __forceinline__ int staged_select(const float* __restrict__ src, int nv,
+                                             float qx, float qy, float qz, float r2,
+                                             int nsample, bool live, int* slots, float* px,
+                                             float* py, float* pz, int lane) {
   int count = 0;
   for (int base = 0; base < nv; base += kStage) {
     if (!__syncthreads_or(live && count < nsample)) break;  // the stage is free
     const int len = min(kStage, nv - base);
-    for (int t = threadIdx.x; t < len; t += kFeatWarps * 32) {
+    for (int t = threadIdx.x; t < len; t += blockDim.x) {
       const float* p = src + (size_t)(base + t) * 3;
       px[t] = p[0];
       py[t] = p[1];
@@ -179,14 +141,117 @@ __global__ void __launch_bounds__(kFeatWarps * 32)
       }
     }
   }
+  return count;
+}
+
+// One query's [S, w] span of grouped channels, shared by both forwards:
+// out[s * w + ch] = trow[pick(s) * c + ch], pick(s) = slots[s] for s <
+// filled, else first (trow is the sample's tcat plus the channel offset).
+// The warp writes it as 16-byte stores, four elements a lane, between a
+// scalar head (up to out's first 16-byte boundary) and a scalar tail; each
+// lane keeps its (slot, channel) and steps it by 128 elements with a carry:
+// no integer division per element; the loop unrolled kSpans times.  w >= 1.
+template <int kSpans>
+__device__ __forceinline__ void walk_span(float* __restrict__ out,
+                                          const float* __restrict__ trow, int c, int w,
+                                          int nsample, const int* slots, int filled,
+                                          int first, int lane) {
+  const int total = nsample * w;
+  const int head = min((4 - knn_topk::span_pad(out)) & 3, total);
+  const int body = (total - head) >> 2;
+  // the head and the tail, at most 3 elements each
+  auto put = [&](int e) {
+    const int s = e / w;
+    out[e] = trow[(size_t)(s < filled ? slots[s] : first) * c + e - s * w];
+  };
+  if (lane < head) put(lane);
+  if (head + 4 * body + lane < total) put(head + 4 * body + lane);
+  // the body: lane l's float4 v = l, l + 32, ...; (s, ch) its first element
+  const int step_s = 128 / w, step_ch = 128 - step_s * w;
+  int s = (head + 4 * lane) / w;
+  int ch = head + 4 * lane - s * w;
+  float4* f4 = reinterpret_cast<float4*>(out + head);
+#pragma unroll kSpans
+  for (int v = lane; v < body; v += 32) {
+    float val[4];
+    int ss = s, cc = ch;
+    int j = ss < filled ? slots[ss] : first;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      val[u] = trow[(size_t)j * c + cc];
+      if (++cc == w) {
+        cc = 0;
+        ++ss;
+        if (u < 3) j = ss < filled ? slots[ss] : first;
+      }
+    }
+    f4[v] = make_float4(val[0], val[1], val[2], val[3]);
+    s += step_s;
+    ch += step_ch;
+    if (ch >= w) {
+      ch -= w;
+      ++s;
+    }
+  }
+}
+
+// The body of both forwards: grid (ceil(M / kBallWarps), B), blocks of
+// kBallWarps queries of one sample, a warp a query, the selection by
+// staged_select; kWide: the walk unrolled 8 times (see kWideSpan).
+//   kPos (ball_feature_kernel): pos through a shared stage of 32 slots at a
+//     time and knn_topk::store_span (each lane one slot of a round, which
+//     also writes sel when asked), then channels 3.. of tcat by walk_span
+//     into feat [B, M, S, C-3] (`out`);
+//   !kPos (ball_group_kernel): sel as a span of S ints when asked, then
+//     every channel of tcat by walk_span into out [B, M, S, C]; out null
+//     skips the walk (repsurf_ball_group_select_floor, a measurement).
+template <bool kPos, bool kWide>
+__device__ __forceinline__ void ball_body(const float* __restrict__ xyz,
+                                          const float* __restrict__ new_xyz,
+                                          const float* __restrict__ tcat,
+                                          const int* __restrict__ valid, int n, int m, int c,
+                                          int nsample, float r2, int return_polar,
+                                          float* __restrict__ pos, float* __restrict__ out,
+                                          int* __restrict__ sel_out) {
+  __shared__ float px[kStage], py[kStage], pz[kStage];
+  __shared__ int sel[kBallWarps][kMaxS];
+  __shared__ __align__(16) float pstage[kPos ? kBallWarps : 1][kPos ? kPosStage : 4];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.y;
+  const int mq = blockIdx.x * kBallWarps + warp;
+  const bool live = mq < m;  // uniform over the warp
+  const int nv = valid == nullptr ? n : valid[b];
+  const float* src = xyz + (size_t)b * n * 3;
+  const size_t query = (size_t)b * m + (live ? mq : 0);
+  const float qx = new_xyz[query * 3 + 0];
+  const float qy = new_xyz[query * 3 + 1];
+  const float qz = new_xyz[query * 3 + 2];
+  int* slots = sel[warp];
+
+  const int count = staged_select(src, nv, qx, qy, qz, r2, nsample, live, slots, px, py, pz,
+                                  lane);
   if (!live) return;
   __syncwarp();
   const int filled = min(count, nsample);
   const int first = count == 0 ? 0 : slots[0];
-  // the whole valid cloud is still staged: read the coordinates there
-  const bool staged = nv >= 1 && nv <= kStage;
 
-  // pos: each lane one slot of a round of 32, staged, then the round's span
+  if (!kPos) {
+    if (sel_out != nullptr) {
+      for (int s = lane; s < nsample; s += 32) {
+        sel_out[query * nsample + s] = s < filled ? slots[s] : first;
+      }
+    }
+    if (out != nullptr) {
+      walk_span<kWide ? 8 : 1>(out + query * nsample * c, tcat + (size_t)b * n * c, c, c, nsample,
+                            slots, filled, first, lane);
+    }
+    return;
+  }
+
+  // pos: each lane one slot of a round of 32, staged, then the round's span;
+  // the whole valid cloud is still staged when it fits: read it there
+  const bool staged = nv >= 1 && nv <= kStage;
   const int pc = return_polar ? 6 : 3;
   float* pout = pos + query * nsample * pc;
   float* stage = pstage[warp];
@@ -226,85 +291,52 @@ __global__ void __launch_bounds__(kFeatWarps * 32)
     __syncwarp();
   }
 
-  // feat: channels 3.. of tcat's selected rows, the [S, fc] span in order
-  const int fc = c - 3;
-  if (fc == 0) return;
-  const float* trow = tcat + (size_t)b * n * c + 3;
-  float* fout = feat + query * nsample * fc;
-  const int total = nsample * fc;
-  const int head = min((4 - knn_topk::span_pad(fout)) & 3, total);
-  const int body = (total - head) >> 2;
-  // the head and the tail, at most 3 elements each
-  auto put = [&](int e) {
-    const int s = e / fc;
-    fout[e] = trow[(size_t)(s < filled ? slots[s] : first) * c + e - s * fc];
-  };
-  if (lane < head) put(lane);
-  if (head + 4 * body + lane < total) put(head + 4 * body + lane);
-  // the body: lane l's float4 v = l, l + 32, ...; (s, ch) its first element
-  const int step_s = 128 / fc, step_ch = 128 - step_s * fc;
-  int s = (head + 4 * lane) / fc;
-  int ch = head + 4 * lane - s * fc;
-  float4* f4 = reinterpret_cast<float4*>(fout + head);
-  for (int v = lane; v < body; v += 32) {
-    float val[4];
-    int ss = s, cc = ch;
-    int j = ss < filled ? slots[ss] : first;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      val[u] = trow[(size_t)j * c + cc];
-      if (++cc == fc) {
-        cc = 0;
-        ++ss;
-        if (u < 3) j = ss < filled ? slots[ss] : first;
-      }
-    }
-    f4[v] = make_float4(val[0], val[1], val[2], val[3]);
-    s += step_s;
-    ch += step_ch;
-    if (ch >= fc) {
-      ch -= fc;
-      ++s;
-    }
+  // feat: channels 3.. of tcat's selected rows
+  if (c > 3) {
+    walk_span<kWide ? 8 : 1>(out + query * nsample * (c - 3), tcat + (size_t)b * n * c + 3, c,
+                           c - 3, nsample, slots, filled, first, lane);
   }
 }
 
-__global__ void ball_group_kernel(const float* __restrict__ xyz,
-                                  const float* __restrict__ new_xyz,
-                                  const float* __restrict__ tcat,
-                                  const int* __restrict__ valid, int batch,
-                                  int n, int m, int c, int nsample, float r2,
-                                  float* __restrict__ out,
-                                  int* __restrict__ sel_out) {
-  __shared__ int sel[kWarps][kMaxS];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int query = blockIdx.x * kWarps + warp;
-  if (query >= batch * m) return;  // whole warps leave together
-  const int b = query / m;
-  const int nv = valid == nullptr ? n : valid[b];
-  const float* src = xyz + (size_t)b * n * 3;
-  int* slots = sel[warp];
+// Each forward in two instantiations (see kWideSpan): narrow, with the
+// registers the compiler picks for 256 threads, and wide, with at most 64
+// (4 blocks an SM).
+__global__ void __launch_bounds__(kBallWarps * 32)
+    ball_feature_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz,
+                        const float* __restrict__ tcat, const int* __restrict__ valid, int n,
+                        int m, int c, int nsample, float r2, int return_polar,
+                        float* __restrict__ pos, float* __restrict__ feat,
+                        int* __restrict__ sel_out) {
+  ball_body<true, false>(xyz, new_xyz, tcat, valid, n, m, c, nsample, r2, return_polar, pos,
+                         feat, sel_out);
+}
 
-  const int count = ball_select(src, nv, new_xyz[(size_t)query * 3 + 0],
-                                new_xyz[(size_t)query * 3 + 1],
-                                new_xyz[(size_t)query * 3 + 2], r2, nsample,
-                                slots, lane);
-  const int filled = min(count, nsample);
-  const int first = count == 0 ? 0 : slots[0];
-  if (sel_out != nullptr) {
-    for (int s = lane; s < nsample; s += 32) {
-      sel_out[(size_t)query * nsample + s] = s < filled ? slots[s] : first;
-    }
-  }
-  const float* tsrc = tcat + (size_t)b * n * c;
-  float* gout = out + (size_t)query * nsample * c;
-  for (int e = lane; e < nsample * c; e += 32) {
-    const int s = e / c;
-    const int ch = e - s * c;
-    const int j = s < filled ? slots[s] : first;
-    gout[e] = tsrc[(size_t)j * c + ch];
-  }
+__global__ void __launch_bounds__(kBallWarps * 32, 4)
+    ball_feature_kernel_wide(const float* __restrict__ xyz, const float* __restrict__ new_xyz,
+                             const float* __restrict__ tcat, const int* __restrict__ valid, int n,
+                             int m, int c, int nsample, float r2, int return_polar,
+                             float* __restrict__ pos, float* __restrict__ feat,
+                             int* __restrict__ sel_out) {
+  ball_body<true, true>(xyz, new_xyz, tcat, valid, n, m, c, nsample, r2, return_polar, pos,
+                        feat, sel_out);
+}
+
+__global__ void __launch_bounds__(kBallWarps * 32)
+    ball_group_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz,
+                      const float* __restrict__ tcat, const int* __restrict__ valid, int n,
+                      int m, int c, int nsample, float r2, float* __restrict__ out,
+                      int* __restrict__ sel_out) {
+  ball_body<false, false>(xyz, new_xyz, tcat, valid, n, m, c, nsample, r2, 0, nullptr, out,
+                          sel_out);
+}
+
+__global__ void __launch_bounds__(kBallWarps * 32, 4)
+    ball_group_kernel_wide(const float* __restrict__ xyz, const float* __restrict__ new_xyz,
+                           const float* __restrict__ tcat, const int* __restrict__ valid, int n,
+                           int m, int c, int nsample, float r2, float* __restrict__ out,
+                           int* __restrict__ sel_out) {
+  ball_body<false, true>(xyz, new_xyz, tcat, valid, n, m, c, nsample, r2, 0, nullptr, out,
+                         sel_out);
 }
 
 constexpr int kScatterWarps = kScatterThreads / 32;
@@ -553,9 +585,11 @@ extern "C" int repsurf_ball_feature(const float* xyz, const float* new_xyz,
                                     float* pos, float* feat, int* sel,
                                     cudaStream_t stream) {
   if (nsample > kMaxS || c < 3) return (int)cudaErrorInvalidValue;
-  const dim3 grid((m + kFeatWarps - 1) / kFeatWarps, batch);
-  ball_feature_kernel<<<grid, kFeatWarps * 32, 0, stream>>>(
-      xyz, new_xyz, tcat, valid, n, m, c, nsample, r2, return_polar, pos, feat, sel);
+  const dim3 grid((m + kBallWarps - 1) / kBallWarps, batch);
+  const auto kernel =
+      nsample * (c - 3) >= kWideSpan ? ball_feature_kernel_wide : ball_feature_kernel;
+  kernel<<<grid, kBallWarps * 32, 0, stream>>>(xyz, new_xyz, tcat, valid, n, m, c, nsample, r2,
+                                               return_polar, pos, feat, sel);
   return (int)cudaGetLastError();
 }
 
@@ -567,9 +601,25 @@ extern "C" int repsurf_ball_group(const float* xyz, const float* new_xyz,
                                   float r2, float* out, int* sel,
                                   cudaStream_t stream) {
   if (nsample > kMaxS || c < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = (batch * m + kWarps - 1) / kWarps;
-  ball_group_kernel<<<blocks, kWarps * 32, 0, stream>>>(
-      xyz, new_xyz, tcat, valid, batch, n, m, c, nsample, r2, out, sel);
+  const dim3 grid((m + kBallWarps - 1) / kBallWarps, batch);
+  const auto kernel = nsample * c >= kWideSpan ? ball_group_kernel_wide : ball_group_kernel;
+  kernel<<<grid, kBallWarps * 32, 0, stream>>>(xyz, new_xyz, tcat, valid, n, m, c, nsample, r2,
+                                               out, sel);
+  return (int)cudaGetLastError();
+}
+
+// The row kernel's launch for C channels without its output walk: the
+// staged selection and sel [B, M, S] i32 alone.  A measurement of the
+// selection, the floor under repsurf_ball_group's time.
+extern "C" int repsurf_ball_group_select_floor(const float* xyz, const float* new_xyz,
+                                               const int* valid, int batch, int n, int m,
+                                               int c, int nsample, float r2, int* sel,
+                                               cudaStream_t stream) {
+  if (nsample > kMaxS || c < 1 || sel == nullptr) return (int)cudaErrorInvalidValue;
+  const dim3 grid((m + kBallWarps - 1) / kBallWarps, batch);
+  const auto kernel = nsample * c >= kWideSpan ? ball_group_kernel_wide : ball_group_kernel;
+  kernel<<<grid, kBallWarps * 32, 0, stream>>>(xyz, new_xyz, nullptr, valid, n, m, c, nsample,
+                                               r2, nullptr, sel);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,5 @@
 """Data: synthetic ScanObjectNN-shaped clouds, batching, FPS
 preprocessing and the vote rescale; synthetic S3DIS-style rooms, the S3DIS
-class weights and padded scene batches (numpy copies of the JAX package's
+per-sample pipeline (augmentations, data_prepare, S3DISDataset), class
+weights and padded scene batches (numpy copies of the JAX package's
 helpers)."""

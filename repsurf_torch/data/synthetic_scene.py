@@ -1,5 +1,5 @@
 """Synthetic indoor-scene point clouds (repsurf_tpu/data/synthetic_scene.py,
-``synthetic_room``, ``label_room`` and the raw rooms of ``SyntheticRooms``),
+``synthetic_room``, ``label_room`` and ``SyntheticRooms``),
 numpy only.
 
 A copy, not an import: importing ``repsurf_tpu.data`` pulls in jax
@@ -13,6 +13,8 @@ surface-sampled rooms.
 """
 
 import numpy as np
+
+from .s3dis import data_prepare
 
 
 def synthetic_room(
@@ -107,17 +109,41 @@ def label_room(coord, size, tol=0.06):
 
 
 class SyntheticRooms:
-    """Labeled synthetic rooms, the no-dataset stand-in for S3DIS
-    (repsurf_tpu/data/synthetic_scene.py ``SyntheticRooms``), as far as the
-    whole-scene test CLI reads it: the room names and each raw room.  The
-    per-sample training pipeline (``data_prepare``) is not ported.
+    """Labeled synthetic rooms, the no-dataset stand-in for S3DISDataset
+    (repsurf_tpu/data/synthetic_scene.py ``SyntheticRooms``).
+
+    Raw rooms are [N, 7] (xyz, rgb 0..255, label) exactly like the real
+    room .npy files; every ``get`` runs the real per-sample pipeline
+    (``data_prepare``: aug -> voxelize -> crop -> shuffle -> normalize), so
+    a ``--synthetic`` training run exercises the same host path as
+    production.  ``raw`` gives a room as the whole-scene test CLI reads it.
     """
 
-    def __init__(self, split="train", n_rooms=12, raw_points=120000, seed=0):
+    def __init__(
+        self,
+        split="train",
+        n_rooms=12,
+        raw_points=120000,
+        loop=1,
+        voxel_size=0.04,
+        voxel_max=80000,
+        coord_transform=None,
+        rgb_transform=None,
+        shuffle_index=True,
+        seed=0,
+    ):
+        self.split = split
         self.raw_points = raw_points
+        self.loop = loop
+        self.voxel_size = voxel_size
+        self.voxel_max = voxel_max
+        self.coord_transform = coord_transform
+        self.rgb_transform = rgb_transform
+        self.shuffle_index = shuffle_index
         # different universes for train and val
         self.seed = seed + (0 if split == "train" else 10_000)
         self.rooms = [f"synth_{split}_{i}" for i in range(n_rooms)]
+        self._cache = {}
 
     def raw(self, i):
         """Room ``i`` as [raw_points, 7] float32 (xyz, rgb 0..255, label),
@@ -132,4 +158,32 @@ class SyntheticRooms:
         rgb = np.clip(base + rng.randn(len(coord), 3) * 25.0, 0.0, 255.0)
         return np.concatenate(
             [coord, rgb.astype(np.float32), label[:, None].astype(np.float32)], axis=1
+        )
+
+    def __len__(self):
+        return len(self.rooms) * self.loop
+
+    def __getitem__(self, idx):
+        return self.get(idx)
+
+    def get(self, idx, rng=None):
+        """Sample ``idx`` (room ``idx % n_rooms``) through ``data_prepare``
+        with the draws of ``rng``: (coord [n, 3], feat [n, 3], label [n])."""
+        i = idx % len(self.rooms)
+        if i not in self._cache:
+            self._cache[i] = self.raw(i)
+        data = self._cache[i]
+        coord, feat, label = data[:, 0:3], data[:, 3:6], data[:, 6]
+        return data_prepare(
+            coord.copy(),
+            feat.copy(),
+            label.copy(),
+            split=self.split,
+            voxel_size=self.voxel_size,
+            voxel_max=self.voxel_max,
+            coord_transform=self.coord_transform,
+            rgb_transform=self.rgb_transform,
+            shuffle_index=self.shuffle_index,
+            stop_transform=(self.split != "train"),
+            rng=rng,
         )

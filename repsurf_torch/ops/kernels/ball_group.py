@@ -294,6 +294,24 @@ def ball_group_channels(radius, nsample, xyz, new_xyz, tcat, valid=None):
     return _BallGroup.apply(tcat, xyz, new_xyz, valid, radius, nsample)
 
 
+def ball_group_select_floor(radius, nsample, xyz, new_xyz, channels, valid=None):
+    """The row kernel's launch for ``channels`` channels without its output
+    walk (repsurf_ball_group_select_floor), on a CUDA device: the selection
+    alone, sel [B, M, S] int32.  A measurement of the staged selection, the
+    floor under the row kernel's time; not counted as a launch."""
+    b, n = xyz.shape[0], xyz.shape[1]
+    xyz = cuda_f32(xyz.detach(), "xyz", (b, n, 3))
+    new_xyz = cuda_f32(new_xyz.detach(), "new_xyz", (b, None, 3))
+    m = new_xyz.shape[1]
+    valid = counts_i32(valid, b, xyz.device)
+    sel = torch.empty((b, m, nsample), dtype=torch.int32, device=xyz.device)
+    status = build.library().repsurf_ball_group_select_floor(
+        ptr(xyz), ptr(new_xyz), ptr(valid), b, n, m, channels, nsample, _radius2(radius),
+        ptr(sel), stream(xyz.device))
+    check_launch(status, "repsurf_ball_group_select_floor")
+    return sel
+
+
 # launches keyed by the channel count C
 ball_group_channels.launches_by_channels = collections.Counter()
 ball_group_channels.backward_launches_by_channels = collections.Counter()

@@ -63,6 +63,10 @@ _SIGNATURES = {
         _I,
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P, _P, _P],
     ),
+    "repsurf_ball_group_select_floor": (
+        _I,
+        [_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P, _P],
+    ),
     "repsurf_ball_scatter": (_I, [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
     "repsurf_ball_scatter_scratch": (ctypes.c_longlong, [_I, _I, _I]),
     "repsurf_knn": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]),

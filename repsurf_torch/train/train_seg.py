@@ -15,36 +15,64 @@ they do in the JAX step.
 """
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from ..models import get_model
 from ..nn.losses import weighted_cross_entropy
 from ..nn.metrics import intersection_and_union
-from .optim import make_adamw, multistep_lr
+from .optim import make_adamw, make_sgd, multistep_lr
 
 FROZEN_SCOPE = "surface_constructor"
 
 
 @dataclasses.dataclass(frozen=True)
 class SegConfig:
-    """The training recipe of scripts/s3dis/train_repsurf_umb.sh, with the
-    JAX package's defaults; the fields the port reads so far."""
+    """The reference argparse surface (tool/train.py:33-103) with the
+    recipe defaults of scripts/s3dis/train_repsurf_umb.sh, as the JAX
+    package's ``SegConfig`` sets them.  ``pred_ignore0`` (ScanNet) is not
+    ported."""
 
     model: str = "repsurf.repsurf_umb_ssg"
+    dataset: str = "S3DIS"
     num_class: int = 13
     ignore_label: int = 255
+    test_area: int = 5
+    batch_size: int = 8
+    batch_size_val: int = 8
+    epoch: int = 100
+    optimizer: str = "AdamW"
     learning_rate: float = 6e-3
     weight_decay: float = 1e-2
+    momentum: float = 0.9
     lr_decay: float = 0.1
     lr_decay_epochs: tuple = (60, 80)
+    min_val: int = 60
+    val_freq: int = 1
     freeze_epoch: int = int(1e6)
     seed: int = 2000
+    voxel_size: float = 0.04
+    voxel_max: int = 80000
     in_channel: int = 6
+    data_norm: str = "mean"
+    loop: int = 30
+    # model
     group_size: int = 8
     return_polar: bool = False
     num_sector: int = 4
     head_dropout: float = 0.5
+    # augmentation flags (tool/train.py:74-94)
+    aug_scale: bool = False
+    aug_rotate: Optional[str] = None
+    aug_jitter: bool = False
+    aug_flip: bool = False
+    aug_shift: bool = False
+    color_contrast: bool = False
+    color_shift: bool = False
+    color_jitter: bool = False
+    hs_shift: bool = False
+    color_drop: bool = False
 
 
 def build_model(cfg, generator=None):
@@ -57,7 +85,13 @@ def build_model(cfg, generator=None):
 
 
 def make_optimizer(model, cfg):
-    return make_adamw(model.parameters(), cfg.learning_rate, cfg.weight_decay)
+    """AdamW (decoupled decay), or SGD with momentum and coupled L2 for
+    ``optimizer="SGD"``, as the JAX ``create_state`` builds them."""
+    if cfg.optimizer == "AdamW":
+        return make_adamw(model.parameters(), cfg.learning_rate, cfg.weight_decay)
+    if cfg.optimizer == "SGD":
+        return make_sgd(model.parameters(), cfg.learning_rate, cfg.momentum, cfg.weight_decay)
+    raise ValueError(f"optimizer {cfg.optimizer!r}: the seg recipe has AdamW and SGD")
 
 
 def _random_sign(batch, generator, device):

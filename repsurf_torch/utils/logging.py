@@ -1,10 +1,12 @@
-"""A file + stdout logger and a JSONL scalar writer
-(repsurf_tpu/utils/logging.py ``get_logger``, ``ScalarWriter``)."""
+"""A file + stdout logger, running meters, a step timer and a JSONL scalar
+writer (repsurf_tpu/utils/logging.py ``get_logger``, ``AverageMeter``,
+``StepTimer``, ``ScalarWriter``)."""
 
 import json
 import logging
 import os
 import sys
+import time
 
 
 def get_logger(log_dir, name="repsurf_torch"):
@@ -24,6 +26,49 @@ def get_logger(log_dir, name="repsurf_torch"):
     logger.addHandler(fh)
     logger.addHandler(sh)
     return logger
+
+
+class AverageMeter:
+    """Running value/avg/sum/count meter."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.val = 0
+        self.avg = 0
+        self.sum = 0
+        self.count = 0
+
+    def update(self, val, n=1):
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / self.count
+
+
+class StepTimer:
+    """Batch and data wall-clock times and the remaining-time ETA (the
+    reference's inline meters, segmentation/tool/train.py:262-267,309-318).
+    ``batch.val`` is the last step's seconds, data loading included."""
+
+    def __init__(self):
+        self.batch = AverageMeter()
+        self.data = AverageMeter()
+        self._end = time.time()
+
+    def data_loaded(self):
+        self.data.update(time.time() - self._end)
+
+    def step_done(self):
+        self.batch.update(time.time() - self._end)
+        self._end = time.time()
+
+    def eta(self, remaining_steps):
+        secs = int(remaining_steps * self.batch.avg)
+        m, s = divmod(secs, 60)
+        h, m = divmod(m, 60)
+        return f"{h:02d}:{m:02d}:{s:02d}"
 
 
 class ScalarWriter:

@@ -4,7 +4,7 @@ versions (and, at one shape each, to the JAX package's Pallas kernels in
 interpret mode).
 
 The replays follow csrc/umbrella.cu (umbrella_tq_kernel, lane_fan_features)
-and csrc/ball_group.cu (ball_feature_kernel), which run only on the card:
+and csrc/ball_group.cu (ball_body), which run only on the card:
 
   * umbrella: each of L = 4 lanes scans every L-th candidate into its own
     k-best list, 32 candidates at a time screened against an upper bound on
@@ -17,14 +17,17 @@ and csrc/ball_group.cu (ball_feature_kernel), which run only on the card:
     takes it, rebuilt from the row.  The per-fan arithmetic is the kernel's
     (make_fan, put_fan), in torch's float32 ops, and the result must equal
     the plain composition bit for bit.
-  * ball feature: blocks of 8 queries of one sample, the sample's valid
+  * ball feature and row grouping (ball_feature_kernel, ball_group_kernel,
+    one body): blocks of 8 queries of one sample, the sample's valid
     points staged 2,048 at a time, the selection four ballots of 32
-    candidates a step;
-    pos written 32 slots at a time through a stage offset by the span's
-    alignment, feat walked by each lane four elements at a time with its
-    (slot, channel) stepped by 128 elements with a carry; both spans as a
-    scalar head, 16-byte-aligned float4s and a scalar tail.  Every output
-    element must be written once.
+    candidates a step (staged_select); the feature kernel's pos written 32
+    slots at a time through a stage offset by the span's alignment; the
+    grouped channels walked by each lane four elements at a time with its
+    (slot, channel) stepped by 128 elements with a carry (walk_span: the
+    feature kernel's channels 3.., every channel for the row grouping, its
+    selection written as a span of S ints); each span as a scalar head,
+    16-byte-aligned float4s and a scalar tail.  Every output element must
+    be written once.
 
 Coordinates lie on a 2^-10 grid, so every squared distance and cross
 product is exact and ties are common.
@@ -41,6 +44,8 @@ from repsurf_torch.geometry.polar import ieee_div
 from repsurf_torch.geometry.umbrella import azimuth_near_ties, fan_azimuth
 from repsurf_torch.ops.gather import index_points
 from repsurf_torch.ops.kernels.ball_group import (
+    ball_group_channels,
+    ball_group_channels_plain,
     ball_group_feature_plain,
     ball_group_feature_selection,
 )
@@ -51,7 +56,7 @@ from repsurf_torch.ops.kernels.umbrella import (
     umbrella_features_kernel,
 )
 from repsurf_torch.ops.neighbors import ball_query
-from repsurf_tpu.ops.pallas.ball_group import ball_group_feature_pallas
+from repsurf_tpu.ops.pallas.ball_group import ball_group_feature_pallas, ball_group_pallas
 from repsurf_tpu.ops.pallas.umbrella import umbrella_features_pallas
 
 torch.set_num_threads(1)
@@ -374,6 +379,76 @@ def _polar(r):
                      phi.astype(np.float32)], -1)
 
 
+def _replay_select(xyz_b, nv, qv, r2, nsample, stage_points=STAGE):
+    """staged_select for one query: the staged points, four ballots of 32
+    candidates a step, hits in index order, stop after the step that
+    reaches nsample hits.  Returns the picks [S] (short balls padded with
+    the first hit, an empty ball point 0)."""
+    slots, count = [], 0
+    for base in range(0, nv, stage_points):  # the staged points
+        if count >= nsample:
+            break
+        length = min(stage_points, nv - base)
+        for t0 in range(0, length, 4 * LANE_COUNT):  # four ballots of 32 a step
+            if count >= nsample:
+                break
+            t = t0 + np.arange(4 * LANE_COUNT)
+            ok = t < length
+            d = xyz_b[base + np.where(ok, t, 0)] - qv
+            hit = ok & (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2] <= r2)
+            slots += [base + int(i) for i in t[hit]][:max(0, nsample - count)]
+            count += int(hit.sum())
+    filled = min(count, nsample)
+    first = slots[0] if count else 0
+    return np.array([slots[s] if s < filled else first for s in range(nsample)])
+
+
+def _replay_walk(flat, written, off, tcat_b, picks, coff, w):
+    """walk_span: the [S, w] span at flat[off:] of channels coff .. coff+w
+    of the picked rows, a scalar head up to the first 16-byte boundary,
+    each lane's float4s with its (slot, channel) stepped by 128 elements
+    with a carry, a scalar tail."""
+    lanes = np.arange(LANE_COUNT)
+    total = len(picks) * w
+    head = min((4 - off % 4) & 3, total)
+    body = (total - head) >> 2
+
+    def value(s, ch):
+        return tcat_b[picks[s], coff + ch]
+
+    for e in list(range(head)) + list(range(head + 4 * body, total)):
+        flat[off + e] = value(e // w, e % w)
+        written[off + e] += 1
+    step_s, step_ch = 128 // w, 128 - (128 // w) * w
+    s, ch = np.divmod(head + 4 * lanes, w)  # once a lane
+    for it in range((body + LANE_COUNT - 1) // LANE_COUNT):
+        v = lanes + LANE_COUNT * it
+        act = v < body
+        ss, cc = s.copy(), ch.copy()
+        for u in range(4):
+            dst = off + head + 4 * v[act] + u
+            assert ((dst - u) % 4 == 0).all()
+            flat[dst] = value(ss[act], cc[act])
+            written[dst] += 1
+            cc += 1
+            wrap = cc == w
+            cc[wrap], ss[wrap] = 0, ss[wrap] + 1
+        s, ch = s + step_s, ch + step_ch
+        carry = ch >= w
+        ch[carry], s[carry] = ch[carry] - w, s[carry] + 1
+
+
+def _queries(m, b_, valid, n):
+    """The (b, mq, nv) of every live warp: blocks of 8 queries of one
+    sample (a warp past M only shares the stage's barriers)."""
+    for b in range(b_):
+        nv = n if valid is None else int(valid[b])
+        for bx in range((m + WARPS - 1) // WARPS):
+            for w in range(WARPS):
+                if bx * WARPS + w < m:
+                    yield b, bx * WARPS + w, nv
+
+
 def _replay_ball(radius, nsample, xyz, q, tcat, valid, stage_points=STAGE):
     """ball_feature_kernel on the CPU, return_polar: (pos [B, M, S, 6],
     feat [B, M, S, C-3], sel [B, M, S]) through flat outputs whose every
@@ -386,76 +461,47 @@ def _replay_ball(radius, nsample, xyz, q, tcat, valid, stage_points=STAGE):
     feat = np.full(b_ * m * nsample * fc, np.nan, np.float32)
     sel = np.full((b_, m, nsample), -1, np.int64)
     pw, fw = np.zeros(pos.size, np.int64), np.zeros(feat.size, np.int64)
-    lanes = np.arange(LANE_COUNT)
-    for b in range(b_):
-        nv = n if valid is None else int(valid[b])
-        for bx in range((m + WARPS - 1) // WARPS):  # blocks of 8 queries of sample b
-            for w in range(WARPS):
-                mq = bx * WARPS + w
-                if mq >= m:
-                    continue  # a warp past M: the stage's barriers only
-                query = b * m + mq
-                qv = q[b, mq]
-                slots, count = [], 0
-                for base in range(0, nv, stage_points):  # the staged points
-                    if count >= nsample:
-                        break
-                    length = min(stage_points, nv - base)
-                    for t0 in range(0, length, 4 * LANE_COUNT):  # four ballots of 32 a step
-                        if count >= nsample:
-                            break
-                        t = t0 + np.arange(4 * LANE_COUNT)
-                        ok = t < length
-                        d = xyz[b, base + np.where(ok, t, 0)] - qv
-                        hit = ok & (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
-                                    <= r2)
-                        slots += [base + int(i) for i in t[hit]][:max(0, nsample - count)]
-                        count += int(hit.sum())
-                filled = min(count, nsample)
-                first = slots[0] if count else 0
-                picks = np.array([slots[s] if s < filled else first for s in range(nsample)])
-                sel[b, mq] = picks
-                # pos: rounds of 32 slots through the stage
-                off = query * nsample * pc
-                pad = off % 4
-                for s0 in range(0, nsample, LANE_COUNT):
-                    cnt = min(LANE_COUNT, nsample - s0)
-                    stage = np.full(LANE_COUNT * pc + 4, np.nan, np.float32)
-                    r = xyz[b, picks[s0:s0 + cnt]] - qv
-                    vals = np.concatenate([r, _polar(r)], -1).reshape(-1)
-                    stage[pad:pad + cnt * pc] = vals
-                    _store_span(pos, off + s0 * pc, stage, pad, cnt * pc, pw)
-                # feat: the division-free walk over the [S, fc] span
-                off = query * nsample * fc
-                total = nsample * fc
-                head = min((4 - off % 4) & 3, total)
-                body = (total - head) >> 2
-
-                def value(s, ch):
-                    return tcat[b, picks[s], 3 + ch]
-
-                for e in list(range(head)) + list(range(head + 4 * body, total)):
-                    feat[off + e] = value(e // fc, e % fc)
-                    fw[off + e] += 1
-                step_s, step_ch = 128 // fc, 128 - (128 // fc) * fc
-                s, ch = np.divmod(head + 4 * lanes, fc)  # once a lane
-                for it in range((body + LANE_COUNT - 1) // LANE_COUNT):
-                    v = lanes + LANE_COUNT * it
-                    act = v < body
-                    ss, cc = s.copy(), ch.copy()
-                    for u in range(4):
-                        dst = off + head + 4 * v[act] + u
-                        assert ((dst - u) % 4 == 0).all()
-                        feat[dst] = value(ss[act], cc[act])
-                        fw[dst] += 1
-                        cc += 1
-                        wrap = cc == fc
-                        cc[wrap], ss[wrap] = 0, ss[wrap] + 1
-                    s, ch = s + step_s, ch + step_ch
-                    carry = ch >= fc
-                    ch[carry], s[carry] = ch[carry] - fc, s[carry] + 1
+    for b, mq, nv in _queries(m, b_, valid, n):
+        query = b * m + mq
+        qv = q[b, mq]
+        picks = _replay_select(xyz[b], nv, qv, r2, nsample, stage_points)
+        sel[b, mq] = picks
+        # pos: rounds of 32 slots through the stage
+        off = query * nsample * pc
+        pad = off % 4
+        for s0 in range(0, nsample, LANE_COUNT):
+            cnt = min(LANE_COUNT, nsample - s0)
+            stage = np.full(LANE_COUNT * pc + 4, np.nan, np.float32)
+            r = xyz[b, picks[s0:s0 + cnt]] - qv
+            vals = np.concatenate([r, _polar(r)], -1).reshape(-1)
+            stage[pad:pad + cnt * pc] = vals
+            _store_span(pos, off + s0 * pc, stage, pad, cnt * pc, pw)
+        # feat: the walk over the [S, C-3] span at channel offset 3
+        _replay_walk(feat, fw, query * nsample * fc, tcat[b], picks, 3, fc)
     assert (pw == 1).all() and (fw == 1).all(), "an output element written other than once"
     return (pos.reshape(b_, m, nsample, pc), feat.reshape(b_, m, nsample, fc), sel)
+
+
+def _replay_rows(radius, nsample, xyz, q, tcat, valid, stage_points=STAGE):
+    """ball_group_kernel on the CPU: (out [B, M, S, C], sel [B, M, S]), the
+    shared selection, sel as a span of S ints, the walk over every channel
+    (offset 0, width C); every element written once."""
+    b_, n, c = tcat.shape
+    m = q.shape[1]
+    r2 = np.float32(float(radius) ** 2)
+    out = np.full(b_ * m * nsample * c, np.nan, np.float32)
+    sel = np.full(b_ * m * nsample, -1, np.int64)
+    ow, sw = np.zeros(out.size, np.int64), np.zeros(sel.size, np.int64)
+    for b, mq, nv in _queries(m, b_, valid, n):
+        query = b * m + mq
+        picks = _replay_select(xyz[b], nv, q[b, mq], r2, nsample, stage_points)
+        for s0 in range(0, nsample, LANE_COUNT):  # lane l writes slot s0 + l
+            s = np.arange(s0, min(nsample, s0 + LANE_COUNT))
+            sel[query * nsample + s] = picks[s]
+            sw[query * nsample + s] += 1
+        _replay_walk(out, ow, query * nsample * c, tcat[b], picks, 0, c)
+    assert (ow == 1).all() and (sw == 1).all(), "an output element written other than once"
+    return out.reshape(b_, m, nsample, c), sel.reshape(b_, m, nsample)
 
 
 def _ball_case(c, nsample, n=300, m=37, seed=0):
@@ -508,3 +554,58 @@ def test_ball_feature_selection_entry_on_the_cpu():
                                            return_polar=True)
     torch.testing.assert_close((pos, feat), (ppos, pfeat), atol=0, rtol=0)
     assert torch.equal(sel, ball_query(0.45, 16, _t(xyz), _t(q), valid=_t(valid)))
+
+
+# --- the row-grouping kernel --------------------------------------------------
+
+
+def _rows_case(c, nsample, seed):
+    """A grid cloud of 2,300 points (past the 2,048-point stage, so balls
+    short of S are scanned over two stages), valid [2300, 1500], M = 37
+    queries on cloud points, the first three far away (empty balls)."""
+    rs = np.random.RandomState(seed)
+    n, m = 2300, 37
+    xyz = _grid(200 + seed, (2, n, 3))
+    q = xyz[:, rs.choice(n, m, replace=False)].copy()
+    q[:, :3] += 3.0
+    tcat = rs.randn(2, n, c).astype(np.float32)
+    return xyz, q, tcat, np.array([n, 1500], np.int32)
+
+
+# about S points in a ball of the 2,300-point cloud: some balls full, some short
+ROWS_RADIUS = {16: 0.25, 32: 0.3, 64: 0.38}
+
+
+@pytest.mark.parametrize("nsample", [16, 32, 64])
+@pytest.mark.parametrize("c", [1, 3, 13, 141])
+def test_ball_rows_replay_is_bit_equal_to_the_plain_version(c, nsample):
+    xyz, q, tcat, valid = _rows_case(c, nsample, seed=c + nsample)
+    radius = ROWS_RADIUS[nsample]
+    out, sel = _replay_rows(radius, nsample, xyz, q, tcat, valid)
+    want_sel = ball_query(radius, nsample, _t(xyz), _t(q), valid=_t(valid)).numpy()
+    np.testing.assert_array_equal(sel, want_sel)
+    want = ball_group_channels_plain(radius, nsample, _t(xyz), _t(q), _t(tcat),
+                                     valid=_t(valid))
+    np.testing.assert_array_equal(out, want.numpy())
+    assert (sel[:, :3] == 0).all()  # the empty balls gather point 0
+    short = (sel[:, 3:] == sel[:, 3:, :1]).sum(-1) > 1  # padded with the first hit
+    assert short.any() and (~short).any()
+    assert (sel[0] >= 2048).any()  # hits from the second stage
+    assert (sel[1] < 1500).all()  # valid < N
+
+
+def test_ball_rows_replay_matches_the_jax_kernel():
+    xyz, q, tcat, valid = _rows_case(13, 32, seed=7)
+    xyz, tcat = xyz[:, :700], tcat[:, :700]
+    valid = np.array([700, 512], np.int32)
+    out, _ = _replay_rows(0.45, 32, xyz, q, tcat, valid)
+    (jout,) = ball_group_pallas(0.45, 32, jnp.asarray(xyz), jnp.asarray(q), [jnp.asarray(tcat)],
+                                valid=jnp.asarray(valid), interpret=True)
+    np.testing.assert_array_equal(out, np.asarray(jout))
+
+
+def test_ball_rows_entry_on_the_cpu_stays_plain():
+    xyz, q, tcat, valid = _rows_case(13, 16, seed=9)
+    got = ball_group_channels(0.3, 16, _t(xyz), _t(q), _t(tcat), valid=_t(valid))
+    want = index_points(_t(tcat), ball_query(0.3, 16, _t(xyz), _t(q), valid=_t(valid)))
+    torch.testing.assert_close(got, want, atol=0, rtol=0)

@@ -108,7 +108,27 @@ Run from the root of a checkout.  Phases, each printing its lines:
                exceed the FPS registers' 131,072 points (the stream
                route), its pass sizes, its predictions read back in range
                and its kernel launches;
-  11. a JSON line of the kernels, then {"ok": true, "device": {...}}.
+  11. model families - window kNN at k = 16 at PointTransformer's four
+               window shapes (80,000 -> 80,000 and -> 20,000, 20,000 ->
+               20,000 and -> 5,000; re-solved queries per sample held to
+               RESOLVE_LIMIT, the call split as in phase 8), brute kNN at
+               k = 16 at its five smaller shapes on the route the policy
+               picks, brute kNN at k = 3 over [64, 1024] (the triangular
+               constructor), the ball-feature forward and its scatter
+               backward at repsurf_ssg_tri's SA1 (C = 10) and SA2 (C = 138)
+               widths, each against its plain version; then
+               repsurf_ssg_tri (ClsConfig defaults), pointnet2_ssg and
+               pointtransformer (SegConfig defaults, bench.py's two
+               80,000-point rooms) at full width, each with FAMILY_STEPS
+               timed train steps, its peak memory and the kernel path
+               against the plain path, then through its CLIs, the three
+               training CLIs at once and then the two test CLIs at once:
+               train_cls --model for one epoch with vote evaluation;
+               train_seg --model for one epoch (a step, validation, the
+               best checkpoint), then test_s3dis --model serving a room
+               from it; finite losses and each CLI's kernel launches by
+               kernel and k;
+  12. a JSON line of the kernels, then {"ok": true, "device": {...}}.
       A device time that torch.profiler did not record whole in
       PROFILE_TRIES traces is null there; the SA1 re-solve check then
       compares the passes by CUDA events.
@@ -162,6 +182,12 @@ UMB_GRAD_RTOL = 1e-5  # of max |grad|: the same composition, atomics in its gath
 UPDATE_RTOL = 1e-3  # SGD update, kernel path against plain path, per parameter,
 UPDATE_FLOOR = 1e-3  # relative to max(its largest update, this share of the global one)
 CLS_PARAMS = 1476791
+TRI, TRI_PARAMS = "repsurf.repsurf_ssg_tri", 1475087
+PN2, PN2_PARAMS = "pointnet2.pointnet2_ssg", 968173
+PT, PT_PARAMS = "pointtransformer.pointtransformer", 7767729
+FAMILY_STEPS = 3  # timed train steps of each family, after one warm-up
+BALL_FEAT_TPU = "repsurf_tpu/ops/pallas/ball_group.py:208"
+BALL_FEAT_T_TPU = "repsurf_tpu/ops/pallas/ball_group.py:374"
 CLI_TIMEOUT = 300
 UMB_SRC, UMB_TPU = "repsurf_torch/csrc/umbrella.cu", "repsurf_tpu/ops/pallas/umbrella.py"
 UMB_REPLACES = {"tq": UMB_TPU + ":302", "full": UMB_TPU + ":88", "slab": UMB_TPU + ":606"}
@@ -783,12 +809,12 @@ def phase_kernels(dev):
         model = get_model("repsurf.repsurf_ssg_umb", generator=gen).to(dev).eval()
         normal1 = model.surface_constructor(xyz1)
         entries.append(check_ball(0.2, 32, xyz1, xyz2, [xyz1, normal1],
-                                  replaces="repsurf_tpu/ops/pallas/ball_group.py:374"))
+                                  replaces=BALL_FEAT_T_TPU))
         normal2 = index_points(normal1, idx2)
         feat2 = torch.randn((BATCH, 512, 128), generator=torch.Generator(dev).manual_seed(1),
                             device=dev)
         entries.append(check_ball(0.4, 64, xyz2, xyz3, [xyz2, normal2, feat2],
-                                  replaces="repsurf_tpu/ops/pallas/ball_group.py:208"))
+                                  replaces=BALL_FEAT_TPU))
         check_ball_edges(dev)
     stages = dict(xyz1=xyz1, xyz2=xyz2, xyz3=xyz3, normal1=normal1, normal2=normal2,
                   feat2=feat2)
@@ -802,6 +828,8 @@ def plain_kernels():
     import repsurf_torch.data.transforms as transforms
     import repsurf_torch.geometry.umbrella as geo_umbrella
     import repsurf_torch.nn.blocks as blocks
+    import repsurf_torch.nn.pointtransformer as pointtransformer
+    import repsurf_torch.nn.triangular as triangular
     import repsurf_torch.ops.interpolate as interpolate
     import repsurf_torch.ops.neighbors as neighbors
     import repsurf_torch.ops.sampling as sampling
@@ -823,7 +851,8 @@ def plain_kernels():
              (blocks, "ball_group_feature", ball_group_feature_plain),
              (neighbors, "ball_group", ball_group_plain),
              (geo_umbrella, "knn", knn_plain), (blocks, "knn", knn_plain),
-             (interpolate, "knn", knn_plain)]
+             (interpolate, "knn", knn_plain), (triangular, "knn", knn_plain),
+             (pointtransformer, "knn", knn_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
         for mod, name, fn in swaps:
@@ -2076,6 +2105,301 @@ def large_room_cli(here):
     return launches
 
 
+def family_clouds(dev):
+    """The clouds the model families' kernels see: bench.py's two
+    80,000-point rooms and their FPS subsets (20,000, 5,000, 1,250, 312
+    points), and the cls clouds at 2048 -> 1024 -> 512 -> 128 points with
+    the triangular constructor's normals."""
+    from repsurf_torch.data.scanobjectnn import SyntheticClouds
+    from repsurf_torch.data.synthetic_scene import synthetic_room
+    from repsurf_torch.nn.triangular import SurfaceConstructor
+    from repsurf_torch.ops.gather import index_points
+    from repsurf_torch.ops.kernels.fps import fps
+
+    rng = np.random.RandomState(0)
+    seg = [torch.from_numpy(np.stack([synthetic_room(SEG_POINTS, rng=rng)
+                                      for _ in range(SEG_BATCH)])).to(dev)]
+    for m in (SEG_POINTS // 4, 5000, 1250, 312):
+        seg.append(fps(seg[-1], m, return_xyz=True)[1])
+    raw = torch.from_numpy(SyntheticClouds(n_samples=BATCH, seed=1).data).to(dev)
+    _, xyz1 = fps(raw, NUM_POINT, return_xyz=True)
+    idx2, xyz2 = fps(xyz1, 512, return_xyz=True)
+    _, xyz3 = fps(xyz2, 128, return_xyz=True)
+    normal1 = SurfaceConstructor(return_dist=True)(xyz1)
+    feat2 = torch.randn((BATCH, 512, 128), generator=torch.Generator(dev).manual_seed(1),
+                        device=dev)
+    return seg, dict(xyz1=xyz1, xyz2=xyz2, xyz3=xyz3, normal1=normal1,
+                     normal2=index_points(normal1, idx2), feat2=feat2)
+
+
+def family_kernels(dev):
+    """The kernels at the shapes only the model families give them, each
+    against its plain version: window kNN at k = 16 over PointTransformer's
+    80,000- and 20,000-point stages (re-solves held to RESOLVE_LIMIT), brute
+    kNN at k = 16 over its smaller stages on the route the policy picks,
+    brute kNN at k = 3 over the cls clouds (the triangular constructor), the
+    ball-feature forward and its scatter backward at the triangular
+    classifier's SA1 (C = 3 + 7) and SA2 (C = 3 + 7 + 128) widths.  Each
+    entry carries (path, counter, key) for its launch count."""
+    entries = []
+    with torch.inference_mode():
+        (room, xyz20, xyz5, xyz1250, xyz312), st = family_clouds(dev)
+        for kind, p, q in (("knn_window", room, room), ("knn_window", room, xyz20),
+                           ("knn_window", xyz20, xyz20), ("knn_window", xyz20, xyz5),
+                           ("knn", xyz5, xyz5), ("knn", xyz5, xyz1250), ("knn", xyz1250, xyz1250),
+                           ("knn", xyz1250, xyz312), ("knn", xyz312, xyz312)):
+            e = check_knn(kind, 16, p, q)
+            e["count"] = ("pointtransformer", f"{kind}_by_k" if kind == "knn_window"
+                          else "knn_brute_by_k", "16")
+            entries.append(e)
+        e = check_knn("knn", 3, st["xyz1"], st["xyz1"])
+        e["count"] = ("tri", "knn_brute_by_k", "3")
+        entries.append(e)
+        sa = ((0.2, 32, st["xyz1"], st["xyz2"], [st["normal1"]], BALL_FEAT_T_TPU),
+              (0.4, 64, st["xyz2"], st["xyz3"], [st["normal2"], st["feat2"]], BALL_FEAT_TPU))
+        for radius, nsample, xyz, q, rest, replaces in sa:
+            e = check_ball(radius, nsample, xyz, q, [xyz, *rest], replaces=replaces)
+            e["count"] = ("tri", "ball_feature_by_c", str(e.pop("channels")))
+            entries.append(e)
+    for radius, nsample, xyz, q, rest, _ in sa:
+        tcat = torch.cat([xyz, *rest], dim=-1).clone()  # out of inference mode
+        e = check_feature_backward(radius, nsample, xyz.clone(), q.clone(), tcat)
+        e["count"] = ("tri", "ball_feature_bwd_by_c", str(e.pop("channels")))
+        entries.append(e)
+    # no gradient reaches SA1's inputs in repsurf_ssg_tri (its constructor
+    # has no parameters): the backward at C = 10 is held but not launched
+    entries[-2]["count"] += ("not on the path",)
+    return entries
+
+
+def timed_steps(step):
+    """FAMILY_STEPS + 1 calls of ``step`` (the first a warm-up), each
+    synchronised on the host clock -> (losses, warm step times in ms)."""
+    losses, ms = [], []
+    for _ in range(FAMILY_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step()))  # synchronises
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"a loss is not finite: {losses}")
+    return losses, ms[1:]
+
+
+def run_clis(here, root, jobs):
+    """CLI processes on the card, all started at once (one card holds them
+    all: about 9, 5 and 11 GiB at the families' peaks) -> [(log lines,
+    kernel launches)] in the order of ``jobs`` [(label, args)], and the
+    seconds until the last one ended.  Each writes to a file under
+    ``root``; every process is waited for, and on a failure the others are
+    stopped."""
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for i, (label, args) in enumerate(jobs):
+            out = open(Path(root) / f"cli{i}.out", "w+")
+            procs.append((label, out, subprocess.Popen([sys.executable, "-m", *args], cwd=here,
+                                                       stdout=out, stderr=subprocess.STDOUT,
+                                                       text=True)))
+        results = []
+        for label, out, proc in procs:
+            code = proc.wait(timeout=CLI_TIMEOUT)
+            out.seek(0)
+            text = out.read()
+            if code != 0:
+                raise AssertionError(f"{label} exited {code}:\n{text[-6000:]}")
+            lines = [ln.split("] ", 1)[-1] for ln in text.splitlines()]
+            launches = json.loads(next(ln for ln in lines if ln.startswith("kernel launches "))
+                                  [len("kernel launches "):])
+            results.append((lines, launches))
+        return results, time.perf_counter() - t0
+    finally:
+        for _, out, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+
+
+def tri_in_process(dev):
+    """repsurf_ssg_tri at full width: FAMILY_STEPS timed train steps at
+    ClsConfig defaults (batch 64, 2048 -> 1024), peak memory, one batch's
+    log-probs on the kernel path against the plain path."""
+    from repsurf_torch.data.scanobjectnn import SyntheticClouds
+    from repsurf_torch.data.transforms import fps_sample
+    from repsurf_torch.train.train_cls import ClsConfig, build_model, make_optimizer, train_step
+
+    cfg = ClsConfig(model=TRI)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(cfg.seed)).to(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != TRI_PARAMS:
+        raise AssertionError(f"{TRI} has {n_params} parameters, not {TRI_PARAMS}")
+    opt = make_optimizer(model, cfg)
+    data = SyntheticClouds(n_samples=BATCH, seed=1)
+    raw, target = torch.from_numpy(data.data).to(dev), torch.from_numpy(data.label).to(dev)
+    gen = torch.Generator(dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = timed_steps(lambda: train_step(model, opt, raw, target, cfg, generator=gen)[0])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.inference_mode():
+        model.eval()
+        pts = fps_sample(raw, cfg.num_point)
+        sign = torch.where(torch.arange(BATCH, device=dev) % 3 == 0, -1.0, 1.0)
+        logp = model(pts, inv_sign=sign)
+        with plain_kernels():
+            plain = model(pts, inv_sign=sign)
+        err = float((logp - plain).abs().max())
+    print(f"  {TRI} ({n_params} parameters), batch {BATCH}, {RAW_POINTS}->{cfg.num_point}: "
+          f"losses {[round(x, 4) for x in losses]}, train step (host clock, synchronised) "
+          f"{[round(t, 3) for t in ms]} ms, median {statistics.median(ms):.3f} ms; peak memory "
+          f"{peak:.2f} GiB; kernel path vs plain path, one batch: max |d log-prob| {err:.3g} "
+          f"(limit {LOGP_ATOL})")
+    if not torch.isfinite(logp).all() or err > LOGP_ATOL:
+        raise AssertionError(f"{TRI}: kernel path and plain path disagree")
+    return {"steps_ms": ms, "peak_gib": peak}
+
+
+def seg_in_process(dev, name, n_params_want):
+    """A seg baseline at full width (SegConfig defaults, bench.py's two
+    80,000-point rooms): FAMILY_STEPS timed train steps, peak memory, one
+    eval forward's logits on the kernel path against the plain path on the
+    live points."""
+    from repsurf_torch.data.s3dis import CLASS_WEIGHTS, pad_batch
+    from repsurf_torch.data.synthetic_scene import synthetic_room
+    from repsurf_torch.train.train_seg import SegConfig, build_model, make_optimizer, train_step
+
+    n, b = SEG_POINTS, SEG_BATCH
+    cfg = SegConfig(model=name)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(cfg.seed)).to(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != n_params_want:
+        raise AssertionError(f"{name} has {n_params} parameters, not {n_params_want}")
+    opt = make_optimizer(model, cfg)
+    rng = np.random.RandomState(0)  # bench.py's batch
+    samples = [(synthetic_room(n, rng=rng), rng.rand(n, 3).astype(np.float32),
+                rng.randint(0, 13, n).astype(np.int64)) for _ in range(b)]
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in pad_batch(samples, n).items()}
+    w = torch.tensor(CLASS_WEIGHTS[5], dtype=torch.float32, device=dev)
+    gen = torch.Generator(dev).manual_seed(1)
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = timed_steps(lambda: train_step(model, opt, batch, w, cfg, generator=gen)[0])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.no_grad():
+        model.eval()
+        args = (batch["coord"], batch["feat"], batch["valid"])
+        logits = model(*args)
+        with plain_kernels():
+            plain = model(*args)
+        live = torch.arange(n, device=dev)[None, :] < batch["valid"][:, None]
+        err = float((logits - plain).abs()[live].max())
+    print(f"  {name} ({n_params} parameters), batch {b} x {n} points: losses "
+          f"{[round(x, 4) for x in losses]}, train step (host clock, synchronised) "
+          f"{[round(t, 3) for t in ms]} ms, median {statistics.median(ms):.3f} ms; peak memory "
+          f"{peak:.2f} GiB; kernel path vs plain path, one eval forward: max |d logit| "
+          f"{err:.3g} (limit {SEG_LOGIT_ATOL})")
+    if not torch.isfinite(logits[live]).all() or err > SEG_LOGIT_ATOL:
+        raise AssertionError(f"{name}: kernel path and plain path disagree")
+    return {"steps_ms": ms, "peak_gib": peak}
+
+
+def check_tri_cli(lines, launches):
+    """train_cls --model repsurf_ssg_tri: a finite loss, the vote line, the
+    full-width model on the card, every kernel of its path launched."""
+    for ln in lines:
+        if ln.startswith(("epoch 1/1", "single ", "kernel launches")) or " parameters on " in ln:
+            print("  cli: " + ln)
+    epoch = next(ln for ln in lines if ln.startswith("epoch 1/1"))
+    loss = float(epoch.split(" loss ")[1].split()[0])
+    if (not math.isfinite(loss) or not any(ln.startswith("single ") for ln in lines)
+            or not any(f"{TRI}: {TRI_PARAMS} parameters on cuda" in ln for ln in lines)):
+        raise AssertionError(f"train_cls {TRI}: no finite loss, vote line or full-width model")
+    need = (sum(launches["fps"].values()), launches["knn_brute_by_k"].get("3", 0),
+            launches["ball_feature_by_c"].get("10", 0), launches["ball_feature_by_c"].get("138", 0),
+            launches["ball_feature_bwd_by_c"].get("138", 0))
+    if not all(need):
+        raise AssertionError(f"train_cls {TRI}: a kernel of the path was not launched: {launches}")
+
+
+def check_seg_cli(name, n_params, lines, launches, served):
+    """train_seg --model: finite train and val losses, the full-width model
+    on the card, a checkpoint, the seg kernels launched; test_s3dis: the
+    checkpoint restored and a result line."""
+    for ln in lines:
+        if (ln.startswith(("train epoch", "val epoch", "best mIoU", "kernel launches"))
+                or " parameters on " in ln):
+            print("  cli: " + ln)
+    losses = [float(ln.split(" loss ", 1)[1].split()[0]) for ln in lines
+              if ln.startswith(("train epoch", "val epoch"))]
+    if len(losses) != 2 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train_seg {name}: losses {losses}")
+    if not any(f"{name}: {n_params} parameters on cuda" in ln for ln in lines):
+        raise AssertionError(f"train_seg {name}: not the full-width model on cuda")
+    if not any("best mIoU ->" in ln for ln in lines):
+        raise AssertionError(f"train_seg {name}: no checkpoint saved")
+    if (not sum(launches["fps"].values()) or not launches["knn_window"]
+            or not sum(launches["knn_brute"].values())):
+        raise AssertionError(f"train_seg {name}: the seg kernels were not launched: {launches}")
+    for ln in served:
+        if "checkpoint restored" in ln or "mIoU/mAcc/OA" in ln:
+            print("  cli: " + ln)
+    if not any("checkpoint restored" in ln for ln in served) or not any(
+            "mIoU/mAcc/OA" in ln for ln in served):
+        raise AssertionError(f"test_s3dis did not serve {name} from its checkpoint")
+
+
+def phase_families(dev):
+    """The model families the umbrella slices do not drive: the kernels at
+    their shapes (family_kernels), each family at full width in process,
+    then the three training CLIs at once (tri one epoch with votes; the
+    seg baselines one epoch each: a step, validation, the best checkpoint)
+    and the two test CLIs at once, each serving a room from its baseline's
+    checkpoint.  Sets each family entry's launches from its path's CLI."""
+    print("model families: the kernels at the families' shapes, then each family at full width")
+    here = Path(__file__).resolve().parent
+    torch.cuda.empty_cache()
+    entries = family_kernels(dev)
+    stats = {"tri": tri_in_process(dev), "pointnet2": seg_in_process(dev, PN2, PN2_PARAMS),
+             "pointtransformer": seg_in_process(dev, PT, PT_PARAMS)}
+    torch.cuda.empty_cache()
+    seg = (("pointnet2", PN2, PN2_PARAMS), ("pointtransformer", PT, PT_PARAMS))
+    with tempfile.TemporaryDirectory() as root:
+        train_jobs = [(f"train_cls {TRI}", [
+            "repsurf_torch.cli.train_cls", "--synthetic", "--model", TRI, "--epoch", "1",
+            "--min_val", "0", "--device", "cuda", "--log_root", str(Path(root) / "tri")])]
+        for key, name, _ in seg:
+            train_jobs.append((f"train_seg {name}", [
+                "repsurf_torch.cli.train_seg", "--synthetic", "--model", name,
+                "--synthetic_rooms", "2", "--batch_size", "2", "--batch_size_val", "2",
+                "--loop", "1", "--min_val", "0", "--voxel_max", str(SEG_POINTS), "--epoch", "1",
+                "--device", "cuda", "--log_root", str(Path(root) / key)]))
+        trained, train_secs = run_clis(here, root, train_jobs)
+        served, serve_secs = run_clis(here, root, [(f"test_s3dis {name}", [
+            "repsurf_torch.cli.test_s3dis", "--synthetic", "--synthetic_rooms", "1", "--model",
+            name, "--device", "cuda", "--log_root", str(Path(root) / key)])
+            for key, name, _ in seg])
+    check_tri_cli(*trained[0])
+    stats["tri"]["launches"] = trained[0][1]
+    for (key, name, n_params), (lines, launches), (served_lines, _) in zip(seg, trained[1:],
+                                                                          served):
+        check_seg_cli(name, n_params, lines, launches, served_lines)
+        stats[key]["launches"] = launches
+    print(f"  CLIs on the card at once: train_cls {TRI}, train_seg {PN2} and {PT} in "
+          f"{train_secs:.1f} s (process start and data included), then test_s3dis of both "
+          f"from their checkpoints in {serve_secs:.1f} s")
+    for e in entries:
+        path, counter, key, *off_path = e.pop("count")
+        e["launches"] = stats[path]["launches"][counter].get(key, 0)
+        if off_path:
+            print(f"  {e['name']}: {e['launches']} launches ({off_path[0]}: no gradient "
+                  f"reaches SA1's inputs in {TRI})")
+        elif not e["launches"]:
+            raise AssertionError(f"{e['name']}: its path launched it no time")
+    print("families: " + "; ".join(
+        f"{k} train step median {statistics.median(v['steps_ms']):.3f} ms, peak "
+        f"{v['peak_gib']:.2f} GiB" for k, v in stats.items()))
+    return entries
+
+
 def main():
     profile = "--profile" in sys.argv[1:]
     seconds = {}
@@ -2124,6 +2448,9 @@ def main():
     t0 = time.perf_counter()
     scene_launches = phase_scene(dev)
     seconds["scene"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    family_entries = phase_families(dev)
+    seconds["model families"] = time.perf_counter() - t0
     large = scene_launches["large room"]
     for e in seg_entries:
         kind = e["name"].split("[")[0]
@@ -2146,7 +2473,7 @@ def main():
           f"{_PROFILER['given_up']} calls not measured, {_PROFILER['pads_lost']} of the "
           f"{2 * PAD_KERNELS * _PROFILER['traces']} spin kernels not recorded")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
-    kernels = entries + umb_entries + train_entries + seg_entries
+    kernels = entries + umb_entries + train_entries + seg_entries + family_entries
     print(json.dumps({"kernels": not_measured_as_null(kernels)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,8 @@ import os
 import numpy as np
 import torch
 
+from ..models import SEG_MODELS
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser("RepSurf S3DIS test (PyTorch)")
@@ -28,7 +30,8 @@ def parse_args(argv=None):
     p.add_argument("--data_dir", type=str, default="./data/S3DIS/trainval_fullarea")
     p.add_argument("--log_root", type=str, default="./log")
     p.add_argument("--model_path", type=str, default=None)
-    p.add_argument("--model", default="repsurf.repsurf_umb_ssg")
+    p.add_argument("--model", default="repsurf.repsurf_umb_ssg",
+                   help="one of " + ", ".join(SEG_MODELS))
     p.add_argument("--seed", type=int, default=1000)
     p.add_argument("--batch_size_test", type=int, default=4)
     p.add_argument("--test_area", type=int, default=5)
@@ -54,6 +57,7 @@ def main(argv=None):
     args = parse_args(argv)
     from ..data.synthetic_scene import SyntheticRooms
     from ..nn.metrics import intersection_and_union, iou_from_counts
+    from ..ops.kernels import kernel_launches
     from ..train.checkpoint import restore_weights
     from ..train.eval_s3dis import LABEL2CLASS, median_filter, predict_scene, visualize_scene
     from ..train.train_seg import SegConfig, build_model
@@ -123,18 +127,6 @@ def main(argv=None):
                     f"{float(iou_class[i]) * 100:.2f}/{float(acc_class[i]) * 100:.2f}")
     logger.info(f"kernel launches {json.dumps(kernel_launches())}")
     return miou, macc, allacc
-
-
-def kernel_launches():
-    """The kNN and FPS kernels' launch counts in this process, by route
-    (all 0 on the CPU, where the plain versions run)."""
-    from ..ops.kernels.fps import fps
-    from ..ops.kernels.knn import knn_brute
-    from ..ops.kernels.knn_window import knn_window
-
-    return {"fps": dict(fps.launches_by_route), "knn_window": knn_window.launches,
-            "knn_window_resolve": knn_window.resolve_launches,
-            "knn_brute": dict(knn_brute.launches_by_route)}
 
 
 if __name__ == "__main__":

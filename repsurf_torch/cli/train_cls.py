@@ -16,11 +16,14 @@ parallelism) are not ported.
 """
 
 import argparse
+import json
 import os
 import pickle
 
 import numpy as np
 import torch
+
+from ..models import CLS_MODELS
 
 
 def parse_args(argv=None):
@@ -28,7 +31,8 @@ def parse_args(argv=None):
     p.add_argument("--log_dir", type=str, default=None)
     p.add_argument("--data_dir", type=str, default="./data")
     p.add_argument("--log_root", type=str, default="./log")
-    p.add_argument("--model", default="repsurf.repsurf_ssg_umb")
+    p.add_argument("--model", default="repsurf.repsurf_ssg_umb",
+                   help="one of " + ", ".join(CLS_MODELS))
     p.add_argument("--seed", type=int, default=2800)
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--optimizer", type=str, default="Adam")
@@ -56,6 +60,7 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     from ..data.scanobjectnn import ScanObjectNNDataset, SyntheticClouds
+    from ..ops.kernels import kernel_launches
     from ..train.checkpoint import BestCheckpointer, apply_train_state, train_state_dict
     from ..train.train_cls import (
         ClsConfig,
@@ -107,6 +112,8 @@ def main(argv=None):
 
     model = build_model(cfg, generator=init_gen).to(device)
     opt = make_optimizer(model, cfg)
+    logger.info(f"{cfg.model}: {sum(p.numel() for p in model.parameters())} parameters on "
+                f"{device}")
     ckpt = BestCheckpointer(os.path.join(run_dir, "checkpoints"))
 
     # silent auto-resume from the best checkpoint, as the reference's bare
@@ -144,6 +151,7 @@ def main(argv=None):
                 writer.add_scalar("acc_single_val", sing, epoch + 1)
                 writer.add_scalar("acc_vote_val", vote, epoch + 1)
     logger.info("done")
+    logger.info(f"kernel launches {json.dumps(kernel_launches())}")
 
 
 if __name__ == "__main__":

@@ -33,6 +33,8 @@ import statistics
 import numpy as np
 import torch
 
+from ..models import SEG_MODELS
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser("RepSurf segmentation (PyTorch)")
@@ -40,7 +42,8 @@ def parse_args(argv=None):
     p.add_argument("--log_root", type=str, default="./log")
     p.add_argument("--data_dir", type=str, default="./data/S3DIS/trainval_fullarea")
     p.add_argument("--dataset", type=str, default="S3DIS")
-    p.add_argument("--model", default="repsurf.repsurf_umb_ssg")
+    p.add_argument("--model", default="repsurf.repsurf_umb_ssg",
+                   help="one of " + ", ".join(SEG_MODELS))
     p.add_argument("--seed", type=int, default=2000)
     p.add_argument("--epoch", default=100, type=int)
     p.add_argument("--batch_size", type=int, default=8)
@@ -138,7 +141,7 @@ def main(argv=None):
         train_step,
     )
     from ..utils import ScalarWriter, StepTimer, derive_seed, epoch_generator, get_logger, set_seed
-    from .test_s3dis import kernel_launches
+    from ..ops.kernels import kernel_launches
 
     cfg = SegConfig(
         model=args.model, dataset=args.dataset, test_area=args.test_area,

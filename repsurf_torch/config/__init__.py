@@ -1,6 +1,6 @@
 """Configuration presets (repsurf_tpu/config); the dataclass configs live in
 ``train/``."""
 
-from .presets import S3DIS_AUG_ARGS
+from .presets import PRESETS, S3DIS_AUG_ARGS, SCANOBJECTNN_AUG_ARGS, get_preset
 
-__all__ = ["S3DIS_AUG_ARGS"]
+__all__ = ["PRESETS", "S3DIS_AUG_ARGS", "SCANOBJECTNN_AUG_ARGS", "get_preset"]

@@ -57,3 +57,17 @@ def _atan2(y, x):
 def azimuth(x, y):
     """xyz2sphere's normalised phi, atan2(y, x) / (2 pi) + 0.5."""
     return ieee_div(_atan2(y, x), 2 * math.pi) + 0.5
+
+
+def xyz2cylind(xyz, normalize=True):
+    """XYZ -> (rho_xy clipped to [0, 1], phi, z clipped to [-1, 1]); when
+    ``normalize``, phi -> phi/(2 pi) + 0.5 and z -> (z + 1)/2, both in
+    [0, 1].  As in the JAX package, no guard at the axis."""
+    x, y, z = xyz[..., 0:1], xyz[..., 1:2], xyz[..., 2:3]
+    rho = torch.clamp(torch.sqrt(x * x + y * y), 0.0, 1.0)
+    phi = torch.atan2(y, x)
+    z = torch.clamp(z, -1.0, 1.0)
+    if normalize:
+        phi = ieee_div(phi, 2 * math.pi) + 0.5
+        z = (z + 1.0) / 2.0
+    return torch.cat([rho, phi, z], dim=-1)

@@ -2,8 +2,9 @@
 (repsurf_tpu/geometry/surface.py).
 
 As in the JAX package, degenerate (zero-area) triangles produce a zero
-normal and an explicit ``degenerate`` mask instead of NaNs, and
-``repair_invalid_group`` overwrites them with each point's first good fan.
+normal and an explicit ``degenerate`` mask instead of NaNs;
+``repair_invalid_group`` overwrites them with each point's first good fan,
+``repair_invalid_points`` with each sample's first good point.
 """
 
 import math
@@ -62,6 +63,47 @@ def cal_const(normal, center, is_normalize=True):
     return ieee_div(const, math.sqrt(3.0)) if is_normalize else const
 
 
+def cal_area(group_xyz):
+    """Twice the triangle area, as the JAX package computes it: the root of
+    the summed squares of the three projected homogeneous determinants.
+
+    Args:
+      group_xyz: [..., 3, 3] triangle vertex coordinates.
+
+    Returns:
+      [..., 1].
+    """
+    x, y, z = (group_xyz[..., d] for d in range(3))  # each [..., 3 vertices]
+
+    def det3(a, b):
+        # |a b 1| over the three vertices' (a, b) coordinates
+        return (a[..., 0] * (b[..., 1] - b[..., 2]) - b[..., 0] * (a[..., 1] - a[..., 2])
+                + (a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1]))
+
+    det_xy, det_yz, det_zx = det3(x, y), det3(y, z), det3(z, x)
+    return torch.sqrt(det_xy**2 + det_yz**2 + det_zx**2)[..., None]
+
+
+def pca(x, k, center=True):
+    """Principal components of [n, d] points by SVD: a dict with 'x', 'k',
+    'components' [d, k] and 'explained_variance' [k].  Each component's
+    sign is the SVD's own."""
+    n = x.shape[0]
+    xc = x - x.mean(dim=0, keepdim=True) if center else x
+    _, s, vt = torch.linalg.svd(xc, full_matrices=False)
+    return {"x": x, "k": k, "components": vt[:k].T,
+            "explained_variance": (s[:k] * s[:k]) / (n - 1)}
+
+
+def _first_good(bad):
+    """Index of the first False along the last axis of ``bad`` (0 when
+    every entry is bad)."""
+    g = bad.shape[-1]
+    pos = torch.arange(g, device=bad.device)
+    first_ok = torch.where(~bad, pos, g).amin(dim=-1)
+    return torch.where(first_ok == g, 0, first_ok)
+
+
 def repair_invalid_group(bad, *tensors):
     """Replace bad fans with each point's first good fan.
 
@@ -76,13 +118,28 @@ def repair_invalid_group(bad, *tensors):
     Returns:
       tuple of repaired tensors (same order).
     """
-    g = bad.shape[-1]
-    fan = torch.arange(g, device=bad.device)
-    # first index of a good fan; g (-> 0) when every fan is bad
-    first_ok = torch.where(~bad, fan, g).amin(dim=-1)
-    first_ok = torch.where(first_ok == g, 0, first_ok)
+    first_ok = _first_good(bad)
     out = []
     for t in tensors:
         repl = select_group(t, first_ok)[:, :, None, :]
+        out.append(torch.where(bad[..., None], repl, t))
+    return tuple(out)
+
+
+def repair_invalid_points(bad, *tensors):
+    """Replace bad points with each sample's first good point (point 0 when
+    every point is bad), jointly across the given tensors.
+
+    Args:
+      bad: [B, N] bool.
+      *tensors: [B, N, C].
+
+    Returns:
+      tuple of repaired tensors (same order).
+    """
+    first_ok = _first_good(bad)
+    out = []
+    for t in tensors:
+        repl = torch.gather(t, 1, first_ok[:, None, None].expand(-1, 1, t.shape[-1]))
         out.append(torch.where(bad[..., None], repl, t))
     return tuple(out)

@@ -1,14 +1,22 @@
 """Model registry, keyed by the reference's dotted names
 (repsurf_tpu/models/__init__.py)."""
 
-from .repsurf_cls import RepSurfClassifier, repsurf_ssg_umb, repsurf_ssg_umb_2x
+from .pointnet2_seg import PointNet2Segmentor, pointnet2_ssg
+from .pointtransformer_seg import PointTransformerSegmentor, pointtransformer
+from .repsurf_cls import RepSurfClassifier, repsurf_ssg_tri, repsurf_ssg_umb, repsurf_ssg_umb_2x
 from .repsurf_seg import RepSurfSegmentor, repsurf_umb_ssg
 
-_REGISTRY = {
+CLS_MODELS = {
     "repsurf.repsurf_ssg_umb": repsurf_ssg_umb,
     "repsurf.repsurf_ssg_umb_2x": repsurf_ssg_umb_2x,
-    "repsurf.repsurf_umb_ssg": repsurf_umb_ssg,
+    "repsurf.repsurf_ssg_tri": repsurf_ssg_tri,
 }
+SEG_MODELS = {
+    "repsurf.repsurf_umb_ssg": repsurf_umb_ssg,
+    "pointnet2.pointnet2_ssg": pointnet2_ssg,
+    "pointtransformer.pointtransformer": pointtransformer,
+}
+_REGISTRY = {**CLS_MODELS, **SEG_MODELS}
 
 
 def get_model(name, **kwargs):
@@ -21,9 +29,16 @@ def get_model(name, **kwargs):
 
 
 __all__ = [
+    "PointNet2Segmentor",
+    "PointTransformerSegmentor",
     "RepSurfClassifier",
     "RepSurfSegmentor",
+    "CLS_MODELS",
+    "SEG_MODELS",
     "get_model",
+    "pointnet2_ssg",
+    "pointtransformer",
+    "repsurf_ssg_tri",
     "repsurf_ssg_umb",
     "repsurf_ssg_umb_2x",
     "repsurf_umb_ssg",

@@ -1,4 +1,5 @@
-"""Umbrella RepSurf classifiers (repsurf_tpu/models/repsurf_cls.py).
+"""RepSurf classifiers, umbrella and triangular
+(repsurf_tpu/models/repsurf_cls.py).
 
 Inputs are [B, N, 3] point coordinates; the output is [B, num_class]
 log-probabilities.  Parameter names are the reference's
@@ -10,15 +11,20 @@ from torch import nn
 
 from ..nn.blocks import SurfaceAbstractionCD, UmbrellaSurfaceConstructor
 from ..nn.layers import Dropout, Linear, MaskedBatchNorm
+from ..nn.triangular import SurfaceConstructor
 
 REPSURF_CHANNEL = 10
+TRIANGULAR_CHANNEL = 7  # normal (3) + center (3) + plane constant (1)
 
 
 class RepSurfClassifier(nn.Module):
-    """Umbrella RepSurf + PointNet++-SSG classifier (repsurf_ssg_umb).
+    """RepSurf + PointNet++-SSG classifier: umbrella (repsurf_ssg_umb) or,
+    with ``constructor="triangular"``, the parameter-free triangular
+    constructor (repsurf_ssg_tri), whose 7 channels (6 without the plane
+    constant) take the umbrella's 10 in every SA stage.
 
     ``forward(points, inv_sign, generator)``: the per-sample random
-    inversion of the umbrella normals is an input, ``inv_sign`` [B] of +-1,
+    inversion of the surface normals is an input, ``inv_sign`` [B] of +-1,
     or None for no inversion (the train step draws it); ``generator`` feeds
     the head's dropout in training.  Parameters are drawn from
     ``generator`` at construction when one is given.  ``umb_pool`` and
@@ -27,7 +33,7 @@ class RepSurfClassifier(nn.Module):
     """
 
     def __init__(self, num_class=15, group_size=8, umb_pool="sum", return_dist=True,
-                 return_center=True, return_polar=True,
+                 return_center=True, return_polar=True, constructor="umbrella",
                  head_dropout=0.4, sa_npoint=(512, 128), sa_radius=(0.2, 0.4),
                  sa_nsample=(32, 64), sa_mlp=((64, 64, 128), (128, 128, 256)),
                  final_mlp=(256, 512, 1024), head_hidden=(512, 256),
@@ -36,11 +42,18 @@ class RepSurfClassifier(nn.Module):
         if not return_center:
             raise ValueError("CD blocks require return_center=True")
         gen = generator
-        self.surface_constructor = UmbrellaSurfaceConstructor(
-            group_size + 1, REPSURF_CHANNEL, aggr_type=umb_pool, return_dist=return_dist,
-            generator=gen,
-        )
-        feat_in = REPSURF_CHANNEL  # normals; each stage appends its features
+        if constructor == "umbrella":
+            self.surface_constructor = UmbrellaSurfaceConstructor(
+                group_size + 1, REPSURF_CHANNEL, aggr_type=umb_pool, return_dist=return_dist,
+                generator=gen,
+            )
+            normal_channel = REPSURF_CHANNEL
+        elif constructor == "triangular":
+            self.surface_constructor = SurfaceConstructor(k=3, return_dist=return_dist)
+            normal_channel = TRIANGULAR_CHANNEL if return_dist else TRIANGULAR_CHANNEL - 1
+        else:
+            raise ValueError(f"constructor must be umbrella or triangular, got {constructor!r}")
+        feat_in = normal_channel  # normals; each stage appends its features
         for i, (npoint, radius, nsample, mlp) in enumerate(
             zip(sa_npoint, sa_radius, sa_nsample, sa_mlp)
         ):
@@ -48,7 +61,7 @@ class RepSurfClassifier(nn.Module):
                 feat_in, tuple(mlp), npoint=npoint, radius=radius,
                 nsample=nsample, return_polar=return_polar, generator=gen,
             ))
-            feat_in = REPSURF_CHANNEL + mlp[-1]
+            feat_in = normal_channel + mlp[-1]
         self.n_sa = len(sa_npoint) + 1
         self.add_module(f"sa{self.n_sa}", SurfaceAbstractionCD(
             feat_in, tuple(final_mlp), group_all=True, return_polar=return_polar,
@@ -77,6 +90,11 @@ class RepSurfClassifier(nn.Module):
 def repsurf_ssg_umb(num_class=15, **kw):
     """Reference recipe repsurf_ssg_umb (1.483 M parameters)."""
     return RepSurfClassifier(num_class=num_class, **kw)
+
+
+def repsurf_ssg_tri(num_class=15, **kw):
+    """Triangular RepSurf classifier (repsurf_ssg_tri)."""
+    return RepSurfClassifier(num_class=num_class, constructor="triangular", **kw)
 
 
 def repsurf_ssg_umb_2x(num_class=15, **kw):

@@ -14,7 +14,7 @@ from torch import nn
 
 from ..geometry.polar import xyz2sphere
 from ..geometry.umbrella import umbrella_features
-from ..ops.gather import index_points_multi
+from ..ops.gather import index_points, index_points_multi
 from ..ops.interpolate import three_interpolate
 from ..ops.kernels.ball_group import ball_group_feature
 from ..ops.masking import counts_to_mask
@@ -27,6 +27,23 @@ from .layers import Linear, MaskedBatchNorm
 def _mask(valid, n):
     """[B, n, 1] bool rows-to-count for MaskedBatchNorm, or None."""
     return None if valid is None else counts_to_mask(valid, n)[:, :, None]
+
+
+def sample(center, npoint, stride, valid, num_sector, train):
+    """FPS of ``npoint`` centers (classification) or N // ``stride``
+    (segmentation), sectorized over ``num_sector`` azimuth sectors in
+    training -> (idx [B, M], new valid counts or None)."""
+    if (npoint is None) == (stride is None):
+        raise ValueError("exactly one of npoint / stride must be set")
+    m = npoint if npoint is not None else max(center.shape[1] // stride, 1)
+    new_valid = None
+    if valid is not None:
+        new_valid = valid // stride if stride is not None else torch.clamp(valid, max=m)
+    if num_sector > 1 and train:
+        idx = sectorized_fps(center, m, num_sector, valid=valid, m_valid=new_valid)
+    else:
+        idx = farthest_point_sample(center, m, valid=valid)
+    return idx, new_valid
 
 
 class SharedMLP(nn.Module):
@@ -140,20 +157,6 @@ class SurfaceAbstractionCD(SharedMLP):
         self.mlp_f0 = Linear(feat_channel, mlp[0], generator=generator)
         self.bn_f0 = MaskedBatchNorm(mlp[0])
 
-    def _sample(self, center, valid):
-        """FPS (sectorized in training) -> (idx [B, M], new valid or None)."""
-        n = center.shape[1]
-        m = self.npoint if self.npoint is not None else max(n // self.stride, 1)
-        new_valid = None
-        if valid is not None:
-            new_valid = valid // self.stride if self.stride is not None else torch.clamp(
-                valid, max=m)
-        if self.num_sector > 1 and self.training:
-            idx = sectorized_fps(center, m, self.num_sector, valid=valid, m_valid=new_valid)
-        else:
-            idx = farthest_point_sample(center, m, valid=valid)
-        return idx, new_valid
-
     def _knn_group(self, center, new_center, tensors, valid):
         """kNN grouping -> (pos, feat): relative coordinates (+ polar) and
         the grouped normal and feature channels."""
@@ -183,7 +186,8 @@ class SurfaceAbstractionCD(SharedMLP):
             pc = group_center.shape[-1]
             pos, feat = new_feature[..., :pc], new_feature[..., pc:]
         else:
-            idx, new_valid = self._sample(center, valid)
+            idx, new_valid = sample(center, self.npoint, self.stride, valid, self.num_sector,
+                                    self.training)
             new_center, new_normal = index_points_multi(idx, center, normal)
             if self.grouping == "knn":
                 pos, feat = self._knn_group(center, new_center, [normal, feature], valid)
@@ -226,3 +230,49 @@ class SurfaceFeaturePropagationCD(SharedMLP):
         if self.skip:
             x = x + self.norm_s0(self.mlp_s0(feat1), mask=mask1)
         return super().forward(torch.relu(x), mask=mask1)
+
+
+class PointNetSetAbstraction(SharedMLP):
+    """PointNet++ SA baseline (repsurf_tpu/nn/blocks.py
+    PointNetSetAbstraction): FPS (sectorized in training with
+    ``num_sector`` > 1), kNN grouping of [relative xyz, features],
+    ``mlp_convs.j`` / ``mlp_bns.j`` and a max-pool over the neighbours.
+    ``in_channel`` counts the grouped channels, 3 + the feature's."""
+
+    def __init__(self, in_channel, mlp, stride=None, npoint=None, nsample=32, num_sector=1,
+                 generator=None):
+        super().__init__(in_channel, mlp, generator=generator)
+        self.stride = stride
+        self.npoint = npoint
+        self.nsample = nsample
+        self.num_sector = num_sector
+
+    def forward(self, xyz, feature, valid=None):
+        """xyz [B,N,3], feature [B,N,C] or None -> (new_xyz [B,M,3],
+        new_feature [B,M,mlp[-1]], new_valid [B] or None)."""
+        idx, new_valid = sample(xyz, self.npoint, self.stride, valid, self.num_sector,
+                                self.training)
+        new_xyz = index_points(xyz, idx)
+        gidx, _ = knn(self.nsample, xyz, new_xyz, valid=valid)
+        group_xyz, group_feature = index_points_multi(gidx, xyz, feature)
+        parts = [group_xyz - new_xyz[:, :, None]]
+        if group_feature is not None:
+            parts.append(group_feature)
+        x = super().forward(torch.cat(parts, dim=-1), mask=_mask(new_valid, new_xyz.shape[1]))
+        return new_xyz, x.amax(dim=2), new_valid
+
+
+class PointNetFeaturePropagation(SharedMLP):
+    """PointNet++ FP baseline (repsurf_tpu/nn/blocks.py
+    PointNetFeaturePropagation): 3-NN inverse-distance interpolation of the
+    coarse features, concatenated after the skip features (when given),
+    then ``mlp_convs.j`` / ``mlp_bns.j``.  ``in_channel`` counts skip +
+    coarse channels."""
+
+    def forward(self, xyz1, feat1, xyz2, feat2, valid1=None, valid2=None):
+        """xyz1 / feat1: the fine cloud and its skip features (or None);
+        xyz2 / feat2: the coarse cloud -> [B, N1, mlp[-1]]."""
+        x = three_interpolate(xyz2, xyz1, feat2, valid_src=valid2)
+        if feat1 is not None:
+            x = torch.cat([feat1, x], dim=-1)
+        return super().forward(x, mask=_mask(valid1, xyz1.shape[1]))

@@ -144,8 +144,10 @@ def knn_brute(k, xyz, new_xyz, valid=None, lanes=None):
     check_launch(status, "repsurf_knn")
     knn_brute.launches += 1
     knn_brute.launches_by_route["thread" if lanes == 1 else "split"] += 1
+    knn_brute.launches_by_k[k] += 1
     return idx, dist
 
 
 knn_brute.launches = 0
 knn_brute.launches_by_route = collections.Counter()
+knn_brute.launches_by_k = collections.Counter()

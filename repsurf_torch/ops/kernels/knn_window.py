@@ -27,6 +27,8 @@ queries, ``knn_window.resolved_total`` the sum over calls since it was last
 set to 0.
 """
 
+import collections
+
 import torch
 
 from . import build
@@ -122,6 +124,7 @@ def window_pass(k, new_xyz, tables):
     )
     check_launch(status, "repsurf_knn_window")
     knn_window.launches += 1
+    knn_window.launches_by_k[k] += 1
     return idx, dist, resolved, fails, fail_kth
 
 
@@ -162,6 +165,7 @@ def knn_window(k, xyz, new_xyz, valid=None):
 
 
 knn_window.launches = 0
+knn_window.launches_by_k = collections.Counter()  # window passes keyed by k
 knn_window.resolve_launches = 0
 knn_window.resolved = None  # [B] int32 on the device, the last call's count
 knn_window.resolved_total = 0  # summed on the device; set to 0 to restart

@@ -6,12 +6,14 @@ cross-entropy with the ignore label, backward, AdamW, and the histogram
 counters.  ``eval_step`` is the serving forward: running statistics, no
 sectors, no dropout, no inversion.
 
-``freeze=True`` follows the JAX step (train_seg.py:148-152): the surface
-constructor's gradients are zeroed before the optimizer, so its AdamW
-moments decay as optax's do, and its parameters end the step exactly as
-they began (torch's decoupled decay would otherwise move them, so they are
-restored from a snapshot).  Its BN running statistics still update, as
-they do in the JAX step.
+Every seg name trains through the same step: the repsurf model draws its
+normal inversion, the baselines take none.  ``freeze=True`` follows the JAX
+step (train_seg.py:148-152): the surface constructor's gradients are zeroed
+before the optimizer, so its AdamW moments decay as optax's do, and its
+parameters end the step exactly as they began (torch's decoupled decay
+would otherwise move them, so they are restored from a snapshot).  Its BN
+running statistics still update, as they do in the JAX step.  A model
+without a surface constructor has nothing to freeze.
 """
 
 import dataclasses
@@ -20,6 +22,7 @@ from typing import Optional
 import torch
 
 from ..models import get_model
+from ..nn.layers import Dropout
 from ..nn.losses import weighted_cross_entropy
 from ..nn.metrics import intersection_and_union
 from .optim import make_adamw, make_sgd, multistep_lr
@@ -77,11 +80,15 @@ class SegConfig:
 
 def build_model(cfg, generator=None):
     """The configured model on the CPU, parameters drawn from ``generator``
-    (a CPU ``torch.Generator``)."""
-    return get_model(cfg.model, num_class=cfg.num_class, group_size=cfg.group_size,
-                     return_polar=cfg.return_polar, num_sector=cfg.num_sector,
-                     head_dropout=cfg.head_dropout, in_channel=cfg.in_channel,
-                     generator=generator)
+    (a CPU ``torch.Generator``).  As in the JAX package, only the repsurf
+    names take ``group_size``, ``return_polar`` and ``head_dropout``; every
+    model takes ``num_sector`` and, to size its first layer, ``in_channel``."""
+    kwargs = dict(num_class=cfg.num_class, num_sector=cfg.num_sector,
+                  in_channel=cfg.in_channel, generator=generator)
+    if "repsurf" in cfg.model:
+        kwargs.update(group_size=cfg.group_size, return_polar=cfg.return_polar,
+                      head_dropout=cfg.head_dropout)
+    return get_model(cfg.model, **kwargs)
 
 
 def make_optimizer(model, cfg):
@@ -107,25 +114,30 @@ def train_step(model, optimizer, batch, class_weight, cfg, generator=None, freez
         valid [B] tensors on the model's device.
       class_weight: [K] tensor.
       generator: ``torch.Generator`` on the model's device for the normal
-        inversion (when ``model.random_inv``) and the head dropout.
-      freeze: freeze the surface constructor (see the module doc).
+        inversion (when ``model.random_inv``) and the head dropout (when
+        the model has one); the baselines take no inversion, PointTransformer
+        no dropout.
+      freeze: freeze the surface constructor (see the module doc); a no-op
+        for a model without one.
 
     Returns:
       (loss, (intersection, union, target)) tensors.
     """
     model.train()
     coord, label = batch["coord"], batch["label"]
-    inv_sign = None
-    if model.random_inv:
+    kwargs = {}
+    if getattr(model, "random_inv", False):
         if generator is None:
             raise ValueError("the random normal inversion needs a generator")
-        inv_sign = _random_sign(coord.shape[0], generator, coord.device)
-    logits = model(coord, batch["feat"], batch["valid"], inv_sign=inv_sign,
-                   generator=generator)
+        kwargs["inv_sign"] = _random_sign(coord.shape[0], generator, coord.device)
+    if any(isinstance(m, Dropout) for m in model.modules()):
+        kwargs["generator"] = generator
+    logits = model(coord, batch["feat"], batch["valid"], **kwargs)
     loss = weighted_cross_entropy(logits, label, class_weight, cfg.ignore_label)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
-    frozen = list(getattr(model, FROZEN_SCOPE).parameters()) if freeze else []
+    scope = getattr(model, FROZEN_SCOPE, None) if freeze else None
+    frozen = [] if scope is None else list(scope.parameters())
     saved = [p.detach().clone() for p in frozen]
     for p in frozen:
         p.grad = torch.zeros_like(p)

@@ -128,6 +128,28 @@ Run from the root of a checkout.  Phases, each printing its lines:
                best checkpoint), then test_s3dis --model serving a room
                from it; finite losses and each CLI's kernel launches by
                kernel and k;
+  11b. scannet and data parallelism - four ScanNet-format scenes of
+               300,000 points (synthetic_room at 0.02 m spacing, xyzrgbl,
+               labels 1..13 with a few percent 0, train.txt and val.txt);
+               FPS, window kNN and brute kNN at the shapes of a ScanNet
+               training step of 2 x 120,000 points and its eval forward
+               (FPS 120,000 -> 30,000, the sectorized [8, 30,000] -> 7,503,
+               30,000 -> 7,500 -> 1,875 -> 468; window kNN 120,000 ->
+               120,000 at k = 9, -> 30,000 and 30,000 -> 7,500 at k = 32,
+               30,000 -> 120,000 at k = 3; brute kNN 7,500 -> 1,875 and
+               1,875 -> 468 at k = 32 and the FP shapes at k = 3), each
+               exact against its plain version, the window's re-solved
+               queries per sample held to RESOLVE_LIMIT; the seg CLI with
+               --dataset ScanNet at its defaults (voxel 0.02, voxel_max
+               120,000), batch 2, --loop 1, 2 epochs with validation,
+               --workers 2, --n_devices 1 --bn sync: finite losses, class
+               0 never predicted, the kernels launched by shape, the step
+               median, the loader's data seconds a step and peak memory;
+               then at once: the same with --bn per_device for one epoch,
+               train_cls --synthetic --dp_mode shard_map --n_devices 1 for
+               one epoch with votes, and test_s3dis serving a room of R2's
+               size from a reference-format .pth and from the port's
+               checkpoint of the same weights (the labels must be equal);
   12. a JSON line of the kernels, then {"ok": true, "device": {...}}.
       A device time that torch.profiler did not record whole in
       PROFILE_TRIES traces is null there; the SA1 re-solve check then
@@ -167,6 +189,7 @@ RESOLVE_LIMIT = 64  # window re-solves a sample at the seg shapes (the JAX smoke
 LARGE_ROOM_RAW = 400000  # the --voxel_max 0 room's raw points
 FPS_LARGE = ((1, 150000, 2048, (10.0, 10.0, 3.0)), (2, 400000, 1024, (16.0, 16.0, 3.0)))
 SLOW_MS = 2000.0  # a plain version this slow is timed fewer times
+ONCE_MS = 1000.0  # in phase 11b, a plain version this slow is timed once
 PROFILE_TRIES = 5  # traces of one call taken before its device time is given up
 PAD_KERNELS = 32  # spin kernels at either end of each device_split trace
 FPS_SRC, FPS_TPU = "repsurf_torch/csrc/fps.cu", "repsurf_tpu/ops/pallas/fps.py:36"
@@ -193,6 +216,8 @@ UMB_SRC, UMB_TPU = "repsurf_torch/csrc/umbrella.cu", "repsurf_tpu/ops/pallas/umb
 UMB_REPLACES = {"tq": UMB_TPU + ":302", "full": UMB_TPU + ":88", "slab": UMB_TPU + ":606"}
 SEG_ROOM_POINTS, SEG_ROOM_SIZE = 12288, (3.0, 3.0, 2.6)  # a small room's pass, R2's shape
 R1_POINTS, R2_POINTS = 120000, 12000
+SCANNET_SCENES, SCANNET_RAW = 4, 300000  # phase 11b: two train and two val scenes
+SEG_PARAMS_SCANNET = 977989  # repsurf_umb_ssg with ScanNet's 21 classes
 VOTE_TIE = 1e-6  # top-two vote-averaged probability gap, device against host mode
 # H100 SXM data sheet: float32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
@@ -371,6 +396,19 @@ def adaptive_ms(fn):
     return median_ms(fn, reps=max(3, min(REPS, int(SLOW_MS / max(first, 1e-3)))), warm=1)
 
 
+def once_if_slow_ms(fn):
+    """adaptive_ms, but a function whose sizing run takes over ONCE_MS is
+    timed by that run alone (host clock around a synchronised call)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    if first > ONCE_MS:
+        return first
+    return median_ms(fn, reps=max(3, min(REPS, int(SLOW_MS / max(first, 1e-3)))), warm=0)
+
+
 def bound(flops, nbytes):
     """(ms, 'operations' | 'bytes'): the least time the card could take for
     work of ``flops`` float32 operations moving ``nbytes`` (each input read
@@ -380,13 +418,14 @@ def bound(flops, nbytes):
 
 
 def _entry(name, source, replaces, err, kernel_fn, plain_fn, work, timer=median_ms,
-           library_fn=None):
+           library_fn=None, plain_timer=None):
     """One kernels-JSON entry: the kernel's and its plain version's times
-    (CUDA events around the call, host work included) and the call's device
-    time (torch.profiler, every kernel it launches), ``work`` = (flops,
-    bytes) of this call for the bound, and the time of ``library_fn``, one
-    PyTorch call computing the same function, where one exists."""
-    ms, plain_ms = timer(kernel_fn), timer(plain_fn)
+    (CUDA events around the call, host work included; the plain version by
+    ``plain_timer`` when given, else ``timer``) and the call's device time
+    (torch.profiler, every kernel it launches), ``work`` = (flops, bytes)
+    of this call for the bound, and the time of ``library_fn``, one PyTorch
+    call computing the same function, where one exists."""
+    ms, plain_ms = timer(kernel_fn), (plain_timer or timer)(plain_fn)
     dev_ms = device_ms(kernel_fn)
     library_ms = None if library_fn is None else timer(library_fn)
     bound_ms, bound_by = bound(*work)
@@ -1421,7 +1460,7 @@ def check_polar(xyz):
         raise AssertionError("xyz2sphere's normalising division is not IEEE on the card")
 
 
-def check_seg_fps(xyz, npoint, valid=None):
+def check_seg_fps(xyz, npoint, valid=None, plain_timer=None):
     from repsurf_torch.ops.gather import index_points
     from repsurf_torch.ops.kernels.fps import fps, fps_plain
 
@@ -1439,6 +1478,7 @@ def check_seg_fps(xyz, npoint, valid=None):
         f"fps[{b}x{n}->{npoint}]", FPS_SRC, FPS_TPU, 0.0,
         lambda: fps(xyz, npoint, valid=valid), lambda: fps_plain(xyz, npoint, valid=valid),
         (FPS_FLOPS * npoint * nv, 4 * (3 * nv + b * npoint)), timer=adaptive_ms,
+        plain_timer=plain_timer,
     )
     return sam, fps_rounds(entry, xyz, npoint)
 
@@ -1490,7 +1530,7 @@ def window_split(name, k, xyz, q):
     return split
 
 
-def check_knn(kind, k, xyz, q, valid=None, lanes=None):
+def check_knn(kind, k, xyz, q, valid=None, lanes=None, plain_timer=None):
     """One kNN kernel against knn_plain (indices and distances equal), with
     its kernels-JSON entry; the window's re-solved queries per sample held
     to RESOLVE_LIMIT and its call split into its steps; ``lanes`` forces a
@@ -1527,7 +1567,7 @@ def check_knn(kind, k, xyz, q, valid=None, lanes=None):
                    WINDOW_TPU if kind == "knn_window" else KNN_TPU, err,
                    lambda: fn(k, xyz, q, valid=valid), lambda: knn_plain(k, xyz, q, valid=valid),
                    (KNN_FLOPS * pairs, 4 * (3 * b * n + 3 * b * m + 2 * b * m * k)),
-                   timer=adaptive_ms)
+                   timer=adaptive_ms, plain_timer=plain_timer)
     if resolved is not None:
         entry["resolved_per_sample"] = resolved
         entry.update(window_split(name, k, xyz, q))
@@ -2400,6 +2440,222 @@ def phase_families(dev):
     return entries
 
 
+def scannet_scenes(root):
+    """SCANNET_SCENES ScanNet-format scenes (xyzrgbl rows of synthetic_room
+    at 0.02 m spacing, labels 1..13 with a seeded few percent 0) under
+    ``root``, the first half listed in train.txt, the rest in val.txt."""
+    from repsurf_torch.data.scannet import synthetic_scan
+
+    names = [f"scene{i:04d}_00" for i in range(SCANNET_SCENES)]
+    for i, name in enumerate(names):
+        np.save(Path(root) / f"{name}.npy", synthetic_scan(SCANNET_RAW, spacing=0.02, seed=i))
+    half = SCANNET_SCENES // 2
+    (Path(root) / "train.txt").write_text("\n".join(names[:half]) + "\n")
+    (Path(root) / "val.txt").write_text("\n".join(names[half:]) + "\n")
+
+
+def scannet_kernels(dev, data):
+    """FPS, window kNN and brute kNN at the shapes of a ScanNet training
+    step (batch 2 x 120,000 points, the CLI's first training batch) and its
+    eval forward, each against its plain version (exact), the window's
+    re-solved queries per sample held to RESOLVE_LIMIT; a plain version over
+    ONCE_MS is timed once."""
+    from repsurf_torch.data import scannet
+    from repsurf_torch.data.s3dis import pad_batch
+    from repsurf_torch.ops.sector import sector_buffers
+
+    train = scannet.ScanNetDataset(str(data), "train")
+    rng = np.random.RandomState(0)
+    batch = pad_batch([train.get(i, rng=rng) for i in range(SEG_BATCH)], scannet.VOXEL_MAX,
+                      scannet.IGNORE_LABEL)
+    room = torch.from_numpy(batch["coord"]).to(dev)
+    print(f"  the training batch: {list(batch['valid'])} points of {scannet.VOXEL_MAX} "
+          f"(scenes of {SCANNET_RAW} raw points, voxel {scannet.VOXEL_SIZE})")
+    if not (batch["valid"] == scannet.VOXEL_MAX).all():
+        raise AssertionError("a ScanNet training sample holds fewer than voxel_max points")
+    m1 = scannet.VOXEL_MAX // 4
+    entries = []
+    with torch.inference_mode():
+        xyz30, e = check_seg_fps(room, m1, plain_timer=once_if_slow_ms)  # eval: no sectors
+        entries.append(e)
+        sec, counts, _, _ = sector_buffers(room, 4)  # training stage 1
+        m_sec = min(m1 // 4 + m1 % 4 + 3, sec.shape[2])
+        _, e = check_seg_fps(sec.reshape(-1, *sec.shape[2:]), m_sec, valid=counts.reshape(-1),
+                             plain_timer=once_if_slow_ms)
+        entries.append(e)
+        xyz7500, e = check_seg_fps(xyz30, m1 // 4, plain_timer=once_if_slow_ms)
+        entries.append(e)
+        xyz1875, e = check_seg_fps(xyz7500, m1 // 16, plain_timer=once_if_slow_ms)
+        entries.append(e)
+        xyz468, e = check_seg_fps(xyz1875, m1 // 64, plain_timer=once_if_slow_ms)
+        entries.append(e)
+        for kind, k, p, q in (
+            ("knn_window", 9, room, room),  # umbrella
+            ("knn_window", 32, room, xyz30),  # SA1
+            ("knn_window", 32, xyz30, xyz7500),  # SA2
+            ("knn_window", 3, xyz30, room),  # FP1
+            ("knn", 32, xyz7500, xyz1875),  # SA3
+            ("knn", 32, xyz1875, xyz468),  # SA4
+            ("knn", 3, xyz468, xyz1875),  # FP4
+            ("knn", 3, xyz1875, xyz7500),  # FP3
+            ("knn", 3, xyz7500, xyz30),  # FP2
+        ):
+            entries.append(check_knn(kind, k, p, q, plain_timer=once_if_slow_ms))
+    for e in entries:
+        e["shape"] = e["name"].split("[", 1)[1].rstrip("]")
+    return entries
+
+
+def cli_lines(proc, label):
+    if proc.returncode != 0:
+        raise AssertionError(f"{label} exited {proc.returncode}:\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    return [ln.split("] ", 1)[-1] for ln in proc.stdout.splitlines()]
+
+
+def check_scannet_cli(lines, label, epochs):
+    """Finite losses, no predicted 0 in validation, the epochs trained;
+    returns (kernel launches, [(step median s, data s, peak GiB)] by
+    epoch)."""
+    train = [ln for ln in lines if ln.startswith("train epoch ")]
+    val = [ln for ln in lines if ln.startswith("val epoch ")]
+    predictions = [ln for ln in lines if ln.startswith("predicted points by class")]
+    for ln in lines:
+        if ln.startswith(("train epoch", "val epoch", "predicted points", "data-parallel",
+                          "train rooms", "kernel launches")) or " parameters on " in ln:
+            print(f"    {label}: {ln}")
+    losses = [float(ln.split(" loss ", 1)[1].split()[0]) for ln in train + val]
+    if len(train) != epochs or len(val) != epochs or len(predictions) != epochs:
+        raise AssertionError(f"{label}: {len(train)} train and {len(val)} val epochs, not "
+                             f"{epochs}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: a loss is not finite: {losses}")
+    for ln in predictions:
+        predicted = json.loads(ln.split(": ", 1)[1])
+        if predicted[0] != 0 or sum(predicted) == 0:
+            raise AssertionError(f"{label}: validation predicted class 0 (or nothing): "
+                                 f"{predicted}")
+    if not any(f"{SEG_PARAMS_SCANNET} parameters on cuda" in ln for ln in lines):
+        raise AssertionError(f"{label}: not repsurf_umb_ssg at 21 classes on cuda")
+    steps = [(float(ln.split("step median ", 1)[1].split()[0]),
+              float(ln.split(", data ", 1)[1].split()[0]),
+              float(ln.split(", peak ", 1)[1].split()[0])) for ln in train]
+    launches = json.loads(next(ln for ln in lines if ln.startswith("kernel launches "))
+                          [len("kernel launches "):])
+    return launches, steps
+
+
+def reference_checkpoints(root):
+    """A seeded repsurf_umb_ssg saved twice: the port's payload and the
+    reference's layout (1x1 convolution weights, the module. prefix,
+    num_batches_tracked) -> (port path, reference path)."""
+    from repsurf_torch.train.checkpoint import train_state_dict
+    from repsurf_torch.train.train_seg import SegConfig, build_model
+
+    model = build_model(SegConfig(), generator=torch.Generator().manual_seed(5))
+    port, ref = Path(root) / "best.pt", Path(root) / "reference.pth"
+    torch.save(train_state_dict(model, torch.optim.SGD(model.parameters(), lr=0.1)), port)
+    sd = {}
+    for i, (k, v) in enumerate(model.state_dict().items()):
+        if k.endswith("weight") and v.ndim == 2:
+            v = v[..., None, None] if i % 2 else v[..., None]
+        sd["module." + k] = v.clone()
+        if k.endswith("running_mean"):
+            sd["module." + k[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(3)
+    torch.save({"state_dict": sd, "epoch": 3}, ref)
+    return port, ref
+
+
+def phase_scannet(dev):
+    """ScanNet and data parallelism: ScanNet-format scenes written here;
+    the seg kernels at the ScanNet step's shapes (scannet_kernels); the
+    seg CLI on them at the ScanNet defaults (voxel 0.02, voxel_max
+    120,000, batch 2, --loop 1, 2 epochs with validation) through the
+    prefetch loader (--workers 2) and the data-parallel step (--n_devices 1
+    --bn sync): finite losses, class 0 never predicted, the kernels launched
+    by shape, step median, data seconds a step, peak memory; then at once:
+    the same run with --bn per_device for one epoch, the cls CLI with
+    --dp_mode shard_map --n_devices 1 for one epoch with votes, and the test
+    CLI serving a room of R2's size from a reference-format checkpoint and
+    from the port's checkpoint of the same weights, whose labels must be
+    equal.  Sets each kernel entry's launches from the sync run's counts by
+    shape."""
+    print("scannet and data parallelism: ScanNet-format scenes, the kernels at their shapes, "
+          "the seg CLI through the loader and the data-parallel step")
+    here = Path(__file__).resolve().parent
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        data = Path(root) / "scannet"
+        data.mkdir()
+        t0 = time.perf_counter()
+        scannet_scenes(data)
+        print(f"  {SCANNET_SCENES} scenes of {SCANNET_RAW} points written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        entries = scannet_kernels(dev, data)
+        torch.cuda.empty_cache()
+        base = ["repsurf_torch.cli.train_seg", "--dataset", "ScanNet", "--data_dir", str(data),
+                "--batch_size", "2", "--batch_size_val", "2", "--loop", "1", "--min_val", "0",
+                "--workers", "2", "--n_devices", "1", "--device", "cuda"]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *base, "--bn", "sync", "--epoch", "2",
+                               "--log_root", str(Path(root) / "sync")], cwd=here,
+                              capture_output=True, text=True, timeout=CLI_TIMEOUT)
+        sync_secs = time.perf_counter() - t0
+        launches, steps = check_scannet_cli(cli_lines(proc, "train_seg --bn sync"), "sync", 2)
+        port_ckpt, ref_ckpt = reference_checkpoints(root)
+        serve = ["repsurf_torch.cli.test_s3dis", "--synthetic", "--synthetic_rooms", "1",
+                 "--synthetic_raw", str(R2_POINTS), "--visual", "--device", "cuda"]
+        jobs = [("train_seg --bn per_device", [*base, "--bn", "per_device", "--epoch", "1",
+                                               "--log_root", str(Path(root) / "per_device")]),
+                ("train_cls --dp_mode shard_map", [
+                    "repsurf_torch.cli.train_cls", "--synthetic", "--epoch", "1", "--min_val",
+                    "0", "--dp_mode", "shard_map", "--n_devices", "1", "--device", "cuda",
+                    "--log_root", str(Path(root) / "cls")]),
+                ("test_s3dis port checkpoint", [*serve, "--model_path", str(port_ckpt),
+                                                "--log_root", str(Path(root) / "port")]),
+                ("test_s3dis reference checkpoint", [*serve, "--model_path", str(ref_ckpt),
+                                                     "--log_root",
+                                                     str(Path(root) / "reference")])]
+        results, rest_secs = run_clis(here, root, jobs)
+        _, per_device_steps = check_scannet_cli(results[0][0], "per_device", 1)
+        cls_lines = results[1][0]
+        for ln in cls_lines:
+            if ln.startswith(("epoch ", "single ", "data-parallel")):
+                print(f"    cls: {ln}")
+        if (not any("data-parallel step over 1 processes" in ln for ln in cls_lines)
+                or not any(ln.startswith("single ") for ln in cls_lines)):
+            raise AssertionError("train_cls --dp_mode shard_map: no data-parallel epoch with votes")
+        labels = {}
+        for (label, _), (lines, _) in zip(jobs[2:], results[2:]):
+            kind = "reference" if "reference" in label else "port"
+            if not any(f"({kind} format)" in ln for ln in lines):
+                raise AssertionError(f"{label}: the checkpoint was not read as {kind}")
+            visual = Path(root) / kind / "S3DIS" / "default" / "visual"
+            labels[kind] = np.loadtxt(next(visual.glob("*_pred.txt")), usecols=(3, 4, 5))
+        differ = int((labels["port"] != labels["reference"]).any(axis=1).sum())
+        print(f"  test_s3dis from the reference-format and the port-format checkpoint of one "
+              f"model: {len(labels['port'])} labels each, {differ} differ")
+        if differ or len(labels["port"]) != R2_POINTS:
+            raise AssertionError("the two checkpoint formats served different labels")
+    for e in entries:
+        kind = e["name"].split("[")[0]
+        counter = {"fps": "fps_by_shape", "knn_window": "knn_window_by_shape",
+                   "knn": "knn_brute_by_shape"}[kind]
+        e["launches"] = launches[counter].get(e.pop("shape"), 0)
+        if not e["launches"]:
+            raise AssertionError(f"{e['name']}: the ScanNet CLI run launched it no time")
+    print("  launches by shape in the sync run: " + json.dumps(
+        {k: launches[k] for k in ("fps_by_shape", "knn_window_by_shape", "knn_brute_by_shape")}))
+    (med1, data1, _), (med2, data2, peak) = steps
+    print(f"scannet: train_seg --dataset ScanNet --workers 2 --n_devices 1 --bn sync, 2 x "
+          f"120,000 points: {sync_secs:.1f} s for 2 epochs (process start and data included); "
+          f"train step median {med1 * 1e3:.3f} ms (epoch 1, cold) and {med2 * 1e3:.3f} ms "
+          f"(epoch 2), data {data1:.4f} / {data2:.4f} s a step, peak {peak:.2f} GiB; "
+          f"--bn per_device step {per_device_steps[0][0] * 1e3:.3f} ms (cold, beside the other "
+          f"CLIs); the other CLIs at once {rest_secs:.1f} s")
+    return entries
+
+
 def main():
     profile = "--profile" in sys.argv[1:]
     seconds = {}
@@ -2451,6 +2707,9 @@ def main():
     t0 = time.perf_counter()
     family_entries = phase_families(dev)
     seconds["model families"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scannet_entries = phase_scannet(dev)
+    seconds["scannet+dp"] = time.perf_counter() - t0
     large = scene_launches["large room"]
     for e in seg_entries:
         kind = e["name"].split("[")[0]
@@ -2473,7 +2732,7 @@ def main():
           f"{_PROFILER['given_up']} calls not measured, {_PROFILER['pads_lost']} of the "
           f"{2 * PAD_KERNELS * _PROFILER['traces']} spin kernels not recorded")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
-    kernels = entries + umb_entries + train_entries + seg_entries + family_entries
+    kernels = entries + umb_entries + train_entries + seg_entries + family_entries + scannet_entries
     print(json.dumps({"kernels": not_measured_as_null(kernels)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,9 @@ filter and visualisation dumps.
 instead of the room files.  The weights come from ``--model_path``, else
 from ``<log_root>/S3DIS/<log_dir>/checkpoints/best.pt`` when it exists (the
 model's state alone, out of the trainer's full payload); without either the
-model keeps its seeded random initialisation.  ``--device`` defaults to the
+model keeps its seeded random initialisation.  ``--model_path`` also takes
+a reference ``.pth`` (``train/torch_import.py``), told apart from the
+port's payload by its keys.  ``--device`` defaults to the
 card and raises without one.
 """
 
@@ -59,6 +61,7 @@ def main(argv=None):
     from ..nn.metrics import intersection_and_union, iou_from_counts
     from ..ops.kernels import kernel_launches
     from ..train.checkpoint import restore_weights
+    from ..train.torch_import import restore_any_weights
     from ..train.eval_s3dis import LABEL2CLASS, median_filter, predict_scene, visualize_scene
     from ..train.train_seg import SegConfig, build_model
     from ..utils import get_logger
@@ -74,7 +77,10 @@ def main(argv=None):
 
     model = build_model(cfg, generator=torch.Generator().manual_seed(cfg.seed))
     ckpt = args.model_path or os.path.join(exp, "checkpoints", "best.pt")
-    if os.path.exists(ckpt):
+    if args.model_path is not None:
+        kind = restore_any_weights(model, ckpt)
+        logger.info(f"checkpoint restored from {ckpt} ({kind} format)")
+    elif os.path.exists(ckpt):
         restore_weights(model, ckpt)
         logger.info(f"checkpoint restored from {ckpt}")
     else:

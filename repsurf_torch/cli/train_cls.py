@@ -11,12 +11,20 @@ clouds) instead of the ScanObjectNN h5 files.  Logs, scalars
 ``<log_root>/ScanObjectNN/<log_dir>/``; a run resumes silently from that
 checkpoint when one is there.  Every epoch's draws come from generators
 derived from (seed, epoch), so a resumed run draws what an unbroken one
-would have.  The JAX CLI's ``--dp_mode shard_map`` / ``--n_devices`` (data
-parallelism) are not ported.
+would have.
+
+``--dp_mode shard_map --n_devices N`` trains data-parallel, one process a
+card (the reference's ``nn.DataParallel``): every rank walks the same
+global batches, steps its rows of each (``parallel.shard_step``), keeps its
+own BN statistics and buffers, and averages the gradients; step i of epoch
+e draws from (seed, e, i, rank).  Rank 0 alone logs, evaluates with its
+buffers and saves.  N defaults to 1 (the JAX CLI takes every device).
 """
 
 import argparse
+import contextlib
 import json
+import logging
 import os
 import pickle
 
@@ -52,15 +60,59 @@ def parse_args(argv=None):
     p.add_argument("--umb_pool", type=str, default="sum")
     p.add_argument("--synthetic", action="store_true", default=False,
                    help="train on synthetic clouds (no dataset needed)")
+    p.add_argument("--n_devices", type=int, default=None,
+                   help="processes for --dp_mode shard_map, one a card (default 1)")
+    p.add_argument("--dp_mode", type=str, default="single", choices=["single", "shard_map"],
+                   help="shard_map = the reference's nn.DataParallel: per-replica BN, "
+                        "averaged gradients")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train on (cuda, cuda:1, cpu)")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.n_devices is not None and args.n_devices < 1:
+        p.error(f"--n_devices {args.n_devices}: at least 1")
+    if args.n_devices not in (None, 1) and args.dp_mode != "shard_map":
+        p.error("--n_devices above 1 needs --dp_mode shard_map")
+    return args
 
 
 def main(argv=None):
+    from ..parallel.distributed import free_port, spawn
+
     args = parse_args(argv)
+    n = args.n_devices or 1
+    if n == 1:
+        return _run(0, args, 1, None)
+    if args.device.startswith("cuda") and torch.cuda.device_count() < n:
+        raise SystemExit(f"--n_devices {n}: {torch.cuda.device_count()} CUDA devices here")
+    spawn(_run, n, args=(args, n, f"tcp://127.0.0.1:{free_port()}"))
+    return None
+
+
+def _run(rank, args, world, init_method):
+    from ..parallel import distributed
+
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit(f"--device {args.device}: no CUDA device here (use --device cpu)")
+        device = torch.device("cuda", (device.index or 0) + rank)
+        torch.cuda.set_device(device)
+    elif world > 1:  # the ranks share the host's cores
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    if args.dp_mode != "shard_map":
+        return _train(args, device)
+    distributed.init_distributed("nccl" if device.type == "cuda" else "gloo", world, rank,
+                                 init_method)
+    try:
+        return _train(args, device)
+    finally:
+        distributed.shutdown()
+
+
+def _train(args, device):
     from ..data.scanobjectnn import ScanObjectNNDataset, SyntheticClouds
     from ..ops.kernels import kernel_launches
+    from ..parallel.distributed import process_info
     from ..train.checkpoint import BestCheckpointer, apply_train_state, train_state_dict
     from ..train.train_cls import (
         ClsConfig,
@@ -68,6 +120,7 @@ def main(argv=None):
         evaluate,
         make_optimizer,
         train_epoch,
+        train_epoch_sharded,
     )
     from ..utils import derive_seed, epoch_generator, get_logger, ScalarWriter, set_seed
 
@@ -91,13 +144,16 @@ def main(argv=None):
         umb_pool=args.umb_pool,
         init_type=args.init,
     )
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {args.device}: no CUDA device here (use --device cpu)")
-
+    rank, world = process_info()
+    main_rank = rank == 0
     run_dir = os.path.join(args.log_root, "ScanObjectNN", args.log_dir or "default")
     log_dir = os.path.join(run_dir, "logs")
-    logger = get_logger(log_dir, "train_cls")
+    if main_rank:
+        logger = get_logger(log_dir, "train_cls")
+    else:
+        logger = logging.getLogger(f"train_cls.rank{rank}")
+        logger.addHandler(logging.NullHandler())
+        logger.propagate = False
     logger.info(cfg)
 
     init_gen = set_seed(cfg.seed)
@@ -127,13 +183,28 @@ def main(argv=None):
             logger.info(f"resumed from epoch {start_epoch} (vote {best_vote:.4f})")
         except (RuntimeError, KeyError, ValueError, pickle.UnpicklingError) as e:
             logger.info(f"no usable checkpoint ({e}); training from scratch")
+    step = None
+    if args.dp_mode == "shard_map":
+        from ..parallel.shard_step import make_cls_train_step
 
-    with ScalarWriter(log_dir) as writer:
+        if cfg.batch_size % world:
+            raise ValueError(f"batch {cfg.batch_size} not divisible over {world} processes")
+        step = make_cls_train_step(cfg)
+        logger.info(f"data-parallel step over {world} processes")
+
+    with contextlib.ExitStack() as stack:
+        writer = stack.enter_context(ScalarWriter(log_dir)) if main_rank else None
         for epoch in range(start_epoch, cfg.epoch):
-            gen = epoch_generator(cfg.seed, epoch, device)
             shuffle = np.random.RandomState(derive_seed(cfg.seed, epoch) % 2**32)
-            loss, acc = train_epoch(model, opt, train_set, cfg, epoch, gen, rng=shuffle)
+            if step is None:
+                gen = epoch_generator(cfg.seed, epoch, device)
+                loss, acc = train_epoch(model, opt, train_set, cfg, epoch, gen, rng=shuffle)
+            else:
+                loss, acc = train_epoch_sharded(step, model, opt, train_set, cfg, epoch,
+                                                rng=shuffle)
             logger.info(f"epoch {epoch + 1}/{cfg.epoch} loss {loss:.4f} acc {acc * 100:.2f}")
+            if not main_rank:
+                continue
             writer.add_scalar("loss_train", loss, epoch + 1)
             writer.add_scalar("acc_train", acc, epoch + 1)
             if epoch >= cfg.min_val:

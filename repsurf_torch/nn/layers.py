@@ -11,6 +11,8 @@ import math
 import torch
 from torch import nn
 
+from ..parallel.distributed import all_reduce_sum
+
 
 class Linear(nn.Linear):
     """``nn.Linear`` whose torch-default init, U(+-1/sqrt(fan_in)) for the
@@ -39,12 +41,19 @@ class MaskedBatchNorm(nn.Module):
     (mean first, then the centered second moment) of the JAX package.
     Parameters are named as torch's (weight, bias, running_mean,
     running_var).
+
+    With a ``process_group`` (the JAX module's ``axis_name``), training
+    statistics span the group's ranks: the masked count and sum are
+    all-reduced, then the centred second moment, and the gradient flows
+    back through both (``parallel.distributed.all_reduce_sum``).  The
+    running buffers update from those statistics on every rank.
     """
 
-    def __init__(self, num_features, momentum=0.1, eps=1e-5):
+    def __init__(self, num_features, momentum=0.1, eps=1e-5, process_group=None):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.process_group = process_group
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -57,18 +66,26 @@ class MaskedBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             axes = tuple(range(x.ndim - 1))
+            group = self.process_group
             if mask is None:
+                w = None
                 cnt = torch.tensor(float(math.prod(x.shape[:-1])), device=x.device)
-                cnt = torch.clamp(cnt, min=1.0)
-                mean = x.sum(dim=axes) / cnt
-                cs = torch.square(x - mean).sum(dim=axes)
+                s = x.sum(dim=axes)
             else:
                 if mask.ndim == x.ndim and mask.shape[-1] == 1:
                     mask = mask[..., 0]
                 w = torch.broadcast_to(mask, x.shape[:-1]).to(x.dtype)[..., None]
-                cnt = torch.clamp(w.sum(), min=1.0)
-                mean = (x * w).sum(dim=axes) / cnt
-                cs = (torch.square(x - mean) * w).sum(dim=axes)
+                cnt = w.sum()
+                s = (x * w).sum(dim=axes)
+            if group is not None:
+                cnt = all_reduce_sum(cnt, group)
+                s = all_reduce_sum(s, group)
+            cnt = torch.clamp(cnt, min=1.0)
+            mean = s / cnt
+            sq = torch.square(x - mean)
+            cs = (sq if w is None else sq * w).sum(dim=axes)
+            if group is not None:
+                cs = all_reduce_sum(cs, group)
             var = torch.clamp(cs / cnt, min=0.0)
             with torch.no_grad():
                 unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)

@@ -98,8 +98,10 @@ def fps(xyz, npoint, valid=None, return_xyz=False):
     check_launch(status, "repsurf_fps")
     fps.launches += 1
     fps.launches_by_route[route] += 1
+    fps.launches_by_shape[f"{b}x{n}->{npoint}"] += 1
     return (idx, sampled) if return_xyz else idx
 
 
 fps.launches = 0
 fps.launches_by_route = collections.Counter()
+fps.launches_by_shape = collections.Counter()  # "BxN->npoint"

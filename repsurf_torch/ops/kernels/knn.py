@@ -145,9 +145,11 @@ def knn_brute(k, xyz, new_xyz, valid=None, lanes=None):
     knn_brute.launches += 1
     knn_brute.launches_by_route["thread" if lanes == 1 else "split"] += 1
     knn_brute.launches_by_k[k] += 1
+    knn_brute.launches_by_shape[f"{b}x{n}->{m},k={k}"] += 1
     return idx, dist
 
 
 knn_brute.launches = 0
 knn_brute.launches_by_route = collections.Counter()
 knn_brute.launches_by_k = collections.Counter()
+knn_brute.launches_by_shape = collections.Counter()  # "BxN->M,k=K"

@@ -125,6 +125,7 @@ def window_pass(k, new_xyz, tables):
     check_launch(status, "repsurf_knn_window")
     knn_window.launches += 1
     knn_window.launches_by_k[k] += 1
+    knn_window.launches_by_shape[f"{b}x{n}->{m},k={k}"] += 1
     return idx, dist, resolved, fails, fail_kth
 
 
@@ -166,6 +167,7 @@ def knn_window(k, xyz, new_xyz, valid=None):
 
 knn_window.launches = 0
 knn_window.launches_by_k = collections.Counter()  # window passes keyed by k
+knn_window.launches_by_shape = collections.Counter()  # window passes, "BxN->M,k=K"
 knn_window.resolve_launches = 0
 knn_window.resolved = None  # [B] int32 on the device, the last call's count
 knn_window.resolved_total = 0  # summed on the device; set to 0 to restart

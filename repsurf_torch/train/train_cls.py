@@ -96,6 +96,22 @@ def _random_sign(batch, generator, device):
     return draw.to(torch.float32) * 2.0 - 1.0
 
 
+def train_forward(model, points, cfg, generator=None, signs=None):
+    """The training forward of ``train_step``: FPS, the augmentation, the
+    normal inversion and the dropout draws (see there) -> log-probs."""
+    model.train()
+    pts = fps_sample(points, cfg.num_point)
+    if cfg.aug_scale or cfg.aug_shift:
+        xyz = transform_point_cloud(pts[..., :3], generator=generator,
+                                    aug_scale=cfg.aug_scale, aug_shift=cfg.aug_shift)
+        pts = torch.cat([xyz, pts[..., 3:]], dim=-1)
+    if signs is None:
+        if generator is None:
+            raise ValueError("the random normal inversion needs a generator")
+        signs = _random_sign(pts.shape[0], generator, pts.device)
+    return model(pts, inv_sign=signs, generator=generator)
+
+
 def train_step(model, optimizer, points, target, cfg, generator=None, signs=None):
     """One optimizer step, in place on ``model`` and ``optimizer``.
 
@@ -110,17 +126,7 @@ def train_step(model, optimizer, points, target, cfg, generator=None, signs=None
     Returns:
       (loss, correct) tensors.
     """
-    model.train()
-    pts = fps_sample(points, cfg.num_point)
-    if cfg.aug_scale or cfg.aug_shift:
-        xyz = transform_point_cloud(pts[..., :3], generator=generator,
-                                    aug_scale=cfg.aug_scale, aug_shift=cfg.aug_shift)
-        pts = torch.cat([xyz, pts[..., 3:]], dim=-1)
-    if signs is None:
-        if generator is None:
-            raise ValueError("the random normal inversion needs a generator")
-        signs = _random_sign(pts.shape[0], generator, pts.device)
-    logp = model(pts, inv_sign=signs, generator=generator)
+    logp = train_forward(model, points, cfg, generator, signs)
     loss = smooth_cls_loss(logp, target)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
@@ -141,6 +147,30 @@ def train_epoch(model, optimizer, dataset, cfg, epoch, generator, rng=None):
         target = torch.from_numpy(lbl).to(device)
         loss, corr = train_step(model, optimizer, torch.from_numpy(pts).to(device), target,
                                 cfg, generator=generator)
+        losses.append(loss)
+        correct = correct + corr
+        total += len(lbl)
+    if not losses:
+        return 0.0, 0.0
+    return float(torch.stack(losses).mean()), int(correct) / total
+
+
+def train_epoch_sharded(step, model, optimizer, dataset, cfg, epoch, rng=None):
+    """One epoch through the data-parallel step of
+    ``parallel.shard_step.make_cls_train_step`` (repsurf_tpu/train/train_cls.py
+    ``train_epoch_sharded``): every rank walks the same shuffled, drop-last
+    global batches (``rng`` seeded alike on every rank) and steps its
+    shard; step i's draws come from (seed, epoch, i, rank).  Returns
+    (mean loss, accuracy) over the global batches, as floats."""
+    from ..utils.seed import epoch_generator
+
+    set_lr(optimizer, epoch_lr(cfg, epoch))
+    device = next(model.parameters()).device
+    losses, correct, total = [], 0, 0
+    for i, (pts, lbl) in enumerate(iterate_batches(dataset, cfg.batch_size, shuffle=True,
+                                                   drop_last=True, rng=rng)):
+        gen = epoch_generator(cfg.seed, epoch, device, i, step.rank)
+        loss, corr = step(model, optimizer, pts, lbl, generator=gen)
         losses.append(loss)
         correct = correct + corr
         total += len(lbl)

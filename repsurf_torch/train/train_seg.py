@@ -34,13 +34,15 @@ FROZEN_SCOPE = "surface_constructor"
 class SegConfig:
     """The reference argparse surface (tool/train.py:33-103) with the
     recipe defaults of scripts/s3dis/train_repsurf_umb.sh, as the JAX
-    package's ``SegConfig`` sets them.  ``pred_ignore0`` (ScanNet) is not
-    ported."""
+    package's ``SegConfig`` sets them."""
 
     model: str = "repsurf.repsurf_umb_ssg"
     dataset: str = "S3DIS"
     num_class: int = 13
     ignore_label: int = 255
+    # ScanNet protocol (tool/train.py:458-468): class 0 is "unannotated";
+    # predictions take the argmax over classes 1.. and never predict 0
+    pred_ignore0: bool = False
     test_area: int = 5
     batch_size: int = 8
     batch_size_val: int = 8
@@ -106,6 +108,37 @@ def _random_sign(batch, generator, device):
     return draw.to(torch.float32) * 2.0 - 1.0
 
 
+def train_forward(model, batch, generator=None):
+    """The training forward of ``train_step`` (``model.train()``, the
+    normal inversion drawn from ``generator`` when ``model.random_inv``,
+    the head's dropout from it when the model has one) -> logits."""
+    model.train()
+    coord = batch["coord"]
+    kwargs = {}
+    if getattr(model, "random_inv", False):
+        if generator is None:
+            raise ValueError("the random normal inversion needs a generator")
+        kwargs["inv_sign"] = _random_sign(coord.shape[0], generator, coord.device)
+    if any(isinstance(m, Dropout) for m in model.modules()):
+        kwargs["generator"] = generator
+    return model(coord, batch["feat"], batch["valid"], **kwargs)
+
+
+def apply_update(model, optimizer, freeze=False):
+    """The optimizer step on the gradients in ``.grad``; with ``freeze``
+    the surface constructor's gradients are zeroed first and its parameters
+    restored after (see the module doc)."""
+    scope = getattr(model, FROZEN_SCOPE, None) if freeze else None
+    frozen = [] if scope is None else list(scope.parameters())
+    saved = [p.detach().clone() for p in frozen]
+    for p in frozen:
+        p.grad = torch.zeros_like(p)
+    optimizer.step()
+    with torch.no_grad():
+        for p, s in zip(frozen, saved):
+            p.copy_(s)
+
+
 def train_step(model, optimizer, batch, class_weight, cfg, generator=None, freeze=False):
     """One training step, in place on ``model`` and ``optimizer``.
 
@@ -123,31 +156,23 @@ def train_step(model, optimizer, batch, class_weight, cfg, generator=None, freez
     Returns:
       (loss, (intersection, union, target)) tensors.
     """
-    model.train()
-    coord, label = batch["coord"], batch["label"]
-    kwargs = {}
-    if getattr(model, "random_inv", False):
-        if generator is None:
-            raise ValueError("the random normal inversion needs a generator")
-        kwargs["inv_sign"] = _random_sign(coord.shape[0], generator, coord.device)
-    if any(isinstance(m, Dropout) for m in model.modules()):
-        kwargs["generator"] = generator
-    logits = model(coord, batch["feat"], batch["valid"], **kwargs)
+    label = batch["label"]
+    logits = train_forward(model, batch, generator)
     loss = weighted_cross_entropy(logits, label, class_weight, cfg.ignore_label)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
-    scope = getattr(model, FROZEN_SCOPE, None) if freeze else None
-    frozen = [] if scope is None else list(scope.parameters())
-    saved = [p.detach().clone() for p in frozen]
-    for p in frozen:
-        p.grad = torch.zeros_like(p)
-    optimizer.step()
-    with torch.no_grad():
-        for p, s in zip(frozen, saved):
-            p.copy_(s)
-    pred = logits.detach().argmax(dim=-1)
+    apply_update(model, optimizer, freeze)
+    pred = predict(logits.detach(), cfg)
     return loss.detach(), intersection_and_union(pred, label, cfg.num_class,
                                                  cfg.ignore_label)
+
+
+def predict(logits, cfg):
+    """The argmax over classes, or with ``cfg.pred_ignore0`` over classes
+    1.. plus one (the reference's ``output[:, 1:].max(1)[1] + 1``)."""
+    if cfg.pred_ignore0:
+        return logits[..., 1:].argmax(dim=-1) + 1
+    return logits.argmax(dim=-1)
 
 
 def eval_step(model, batch, class_weight, cfg):
@@ -159,7 +184,7 @@ def eval_step(model, batch, class_weight, cfg):
         logits = model(batch["coord"], batch["feat"], batch["valid"])
         loss = weighted_cross_entropy(logits, batch["label"], class_weight,
                                       cfg.ignore_label)
-    pred = logits.argmax(dim=-1)
+    pred = predict(logits, cfg)
     return loss, pred, intersection_and_union(pred, batch["label"], cfg.num_class,
                                               cfg.ignore_label)
 

@@ -1,12 +1,16 @@
-"""A file + stdout logger, running meters, a step timer and a JSONL scalar
-writer (repsurf_tpu/utils/logging.py ``get_logger``, ``AverageMeter``,
-``StepTimer``, ``ScalarWriter``)."""
+"""A file + stdout logger, running meters, a step timer, a profiler trace
+context and a JSONL scalar writer (repsurf_tpu/utils/logging.py
+``get_logger``, ``AverageMeter``, ``StepTimer``, ``profile_trace``,
+``ScalarWriter``)."""
 
+import contextlib
 import json
 import logging
 import os
 import sys
 import time
+
+import torch
 
 
 def get_logger(log_dir, name="repsurf_torch"):
@@ -69,6 +73,28 @@ class StepTimer:
         m, s = divmod(secs, 60)
         h, m = divmod(m, 60)
         return f"{h:02d}:{m:02d}:{s:02d}"
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir, enabled=True):
+    """``torch.profiler`` over the block (host, and the card's kernels when
+    CUDA is available), written as a Chrome trace
+    ``<log_dir>/trace_<pid>.json`` (chrome://tracing, Perfetto); yields
+    the profiler, or None when not ``enabled``."""
+    if not enabled:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}.json"))
 
 
 class ScalarWriter:

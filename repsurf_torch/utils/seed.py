@@ -31,3 +31,9 @@ def derive_seed(seed, *path):
 def epoch_generator(seed, epoch, device, *path):
     """A ``torch.Generator`` on ``device`` for (seed, epoch, *path)."""
     return torch.Generator(device).manual_seed(derive_seed(seed, epoch, *path))
+
+
+def worker_rng(seed, worker_id):
+    """Per-worker NumPy generator (the reference's worker_init_fn,
+    segmentation/util/utils.py:99-105)."""
+    return np.random.RandomState(seed + worker_id)

@@ -150,7 +150,21 @@ Run from the root of a checkout.  Phases, each printing its lines:
                one epoch with votes, and test_s3dis serving a room of R2's
                size from a reference-format .pth and from the port's
                checkpoint of the same weights (the labels must be equal);
-  12. a JSON line of the kernels, then {"ok": true, "device": {...}}.
+  12. bench   - python -m repsurf_torch.bench at its defaults: three JSON
+               lines (seg train, whole-scene inference, cls eval), each
+               value finite and above 0, each on this card and power limit,
+               the inference child loading the built kernels, FPS, window,
+               brute, tq and ball-feature launches counted; the op tables
+               of profile_seg --steps 3 --top 25 --fwd --scene 220000
+               (train step, eval forward, predict_scene on the inference
+               bench's first room) and profile_cls --ops, each CLI in its
+               own process, each table from a whole trace and naming the
+               path's kernels with device time above 0; knn_window_stats,
+               its re-solved queries per sample held to RESOLVE_LIMIT; a
+               ModelNet40Dataset batch of [32, 1024] from a txt fixture
+               through fps_sample and repsurf_ssg_umb with 40 classes,
+               finite;
+  13. a JSON line of the kernels, then {"ok": true, "device": {...}}.
       A device time that torch.profiler did not record whole in
       PROFILE_TRIES traces is null there; the SA1 re-solve check then
       compares the passes by CUDA events.
@@ -165,6 +179,7 @@ import dataclasses
 import functools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -174,6 +189,13 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from repsurf_torch.utils.profiling import (
+    PAD_KERNELS,
+    PROFILER,
+    device_split,
+    not_measured_as_null,
+)
 
 BATCH, RAW_POINTS, NUM_POINT = 64, 2048, 1024
 REPS = 20
@@ -190,8 +212,6 @@ LARGE_ROOM_RAW = 400000  # the --voxel_max 0 room's raw points
 FPS_LARGE = ((1, 150000, 2048, (10.0, 10.0, 3.0)), (2, 400000, 1024, (16.0, 16.0, 3.0)))
 SLOW_MS = 2000.0  # a plain version this slow is timed fewer times
 ONCE_MS = 1000.0  # in phase 11b, a plain version this slow is timed once
-PROFILE_TRIES = 5  # traces of one call taken before its device time is given up
-PAD_KERNELS = 32  # spin kernels at either end of each device_split trace
 FPS_SRC, FPS_TPU = "repsurf_torch/csrc/fps.cu", "repsurf_tpu/ops/pallas/fps.py:36"
 WINDOW_SRC = "repsurf_torch/csrc/knn_window.cu"
 WINDOW_TPU = "repsurf_tpu/ops/pallas/knn_window.py:60"
@@ -219,6 +239,14 @@ R1_POINTS, R2_POINTS = 120000, 12000
 SCANNET_SCENES, SCANNET_RAW = 4, 300000  # phase 11b: two train and two val scenes
 SEG_PARAMS_SCANNET = 977989  # repsurf_umb_ssg with ScanNet's 21 classes
 VOTE_TIE = 1e-6  # top-two vote-averaged probability gap, device against host mode
+BENCH_METRICS = ("s3dis_train_scenes_per_sec_per_chip", "s3dis_infer_scenes_per_sec_per_chip",
+                 "scanobjectnn_eval_clouds_per_sec_per_chip")  # repsurf_torch.bench, in order
+BENCH_TIMEOUT = 900
+BENCH_KERNELS = ("fps", "knn_window", "knn_brute", "umbrella_tq", "ball_feature")
+SEG_TABLE_KERNELS = ("fps_kernel", "knn_window_kernel", ("knn_split_kernel", "knn_kernel"))
+BENCH_SCENE_RAW = 220000  # raw points of the whole-scene op table's room (the infer bench's)
+CLS_TABLE_KERNELS = ("fps_kernel", "umbrella_tq_kernel", "ball_feature_kernel")
+MODELNET_SHAPES = 32  # a [32, 1024] batch from the ModelNet40 fixture
 # H100 SXM data sheet: float32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 KNN_FLOPS = 8  # one squared distance: 3 differences, 3 products, 2 sums
@@ -259,6 +287,7 @@ def phase_card():
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}"
     )
+    return smi
 
 
 def phase_build():
@@ -304,80 +333,6 @@ def median_ms(fn, reps=REPS, warm=3):
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
-
-
-# device_split's traces: "silent" while the last call found no whole trace
-_PROFILER = {"silent": False, "traces": 0, "retaken": 0, "given_up": 0, "pads_lost": 0}
-
-
-def device_split(fn, groups, reps=REPS):
-    """Device time of one call of fn, split by kernel: {group: ms} for each
-    group whose pattern is a substring of a kernel's name, and "other" for
-    the rest (torch.profiler self times over ``reps`` calls after a
-    warm-up, over reps).  Where a call's host work outlasts its kernels,
-    CUDA events around the call measure the host; this measures the card.
-    Now and then a trace records no device activity at all (about one in
-    2,400 on an H100, repsurf_torch/probes/cupti_teardown.py), or only part
-    of it: a trace in which some kernel's count is not a multiple of reps
-    is torn.  Late in a long run every trace came back short by the same
-    few records, so each trace's calls sit between PAD_KERNELS spin
-    kernels at either end, which are left out of the times.  A torn or
-    empty trace is taken again after a pause, up to PROFILE_TRIES times,
-    and if none is whole, every value is NaN (not measured; null in the
-    kernels line).  After such a call the next takes one trace until one
-    is whole again."""
-    from torch.profiler import ProfilerActivity, profile
-
-    def pad():
-        for _ in range(PAD_KERNELS):
-            torch.cuda._sleep(1000)
-
-    fn()
-    torch.cuda.synchronize()
-    tries = 1 if _PROFILER["silent"] else PROFILE_TRIES
-    for attempt in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            pad()
-            for _ in range(reps):
-                fn()
-            pad()
-            torch.cuda.synchronize()
-        out = dict.fromkeys([*groups, "other"], 0.0)
-        torn, pads = [], 0
-        for e in prof.key_averages():
-            if "spin_kernel" in e.key:
-                pads += e.count
-                continue
-            ms = getattr(e, "self_device_time_total", 0.0) / 1e3
-            key = next((g for g, pattern in groups.items() if pattern in e.key), "other")
-            out[key] += ms / reps
-            if ms > 0 and e.count % reps:
-                torn.append(f"{e.key[:48]} x{e.count}")
-        _PROFILER["traces"] += 1
-        _PROFILER["pads_lost"] += 2 * PAD_KERNELS - pads
-        if sum(out.values()) > 0 and not torn:
-            _PROFILER["silent"] = False
-            return out
-        _PROFILER["retaken"] += 1
-        what = f"is torn ({', '.join(torn[:3])})" if torn else "recorded no device time"
-        print(f"  torch.profiler: a trace of {reps} calls {what}, {pads} of "
-              f"{2 * PAD_KERNELS} spin kernels (try {attempt + 1} of {tries})")
-        if attempt + 1 < tries:
-            time.sleep(0.25 * 2 ** attempt)
-    _PROFILER["silent"] = True
-    _PROFILER["given_up"] += 1
-    print("  torch.profiler: no whole trace; this call's device times are not measured")
-    return dict.fromkeys([*groups, "other"], math.nan)
-
-
-def not_measured_as_null(obj):
-    """obj with every NaN (a time not measured) replaced by None, so the
-    kernels line stays strict JSON."""
-    if isinstance(obj, dict):
-        return {k: not_measured_as_null(v) for k, v in obj.items()}
-    if isinstance(obj, list):
-        return [not_measured_as_null(v) for v in obj]
-    return None if isinstance(obj, float) and math.isnan(obj) else obj
 
 
 def device_ms(fn, reps=REPS):
@@ -2656,11 +2611,174 @@ def phase_scannet(dev):
     return entries
 
 
+def printed_tables(text):
+    """{label: (header, {kernel name: ms a call})} of the op tables a
+    profiling CLI printed (``OpTable.lines``)."""
+    tables, rows = {}, None
+    for line in text.splitlines():
+        if line.startswith("== "):
+            label, _, header = line[3:].partition(": ")
+            rows = {}
+            tables[label] = (header, rows)
+        elif rows is not None and (row := re.match(r"\s+([\d.]+) ms\s+[\d.]+x  (.*)$", line)):
+            rows[row.group(2)] = rows.get(row.group(2), 0.0) + float(row.group(1))
+        else:
+            rows = None
+    return tables
+
+
+def table_kernels(tables, prefix, patterns):
+    """(busy ms, host wall ms, {pattern: device ms}) of the printed table
+    labelled ``prefix`` (or ``prefix (...)``); raises unless it came from a whole
+    trace and names each pattern (a tuple: any one of its names) with
+    device time above 0."""
+    label = next((k for k in tables if k == prefix or k.startswith(prefix + " (")), None)
+    if label is None:
+        raise AssertionError(f"no table {prefix!r} printed")
+    header, rows = tables[label]
+    times = re.match(r"device self time \(torch.profiler, CUDA\) ([\d.]+) ms a call, host "
+                     r"wall ([\d.]+) ms a call", header)
+    if times is None:
+        raise AssertionError(f"{label}: {header}")
+    found = {}
+    for pattern in patterns:
+        names = pattern if isinstance(pattern, tuple) else (pattern,)
+        ms = sum(v for k, v in rows.items() if any(n in k for n in names))
+        if not ms > 0:
+            raise AssertionError(f"{label}: no device time for {' or '.join(names)}")
+        found["/".join(names)] = round(ms, 4)
+    return float(times.group(1)), float(times.group(2)), found
+
+
+def profiler_cli(here, args):
+    """Run ``python -m <args>`` and return its printed tables."""
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=here, capture_output=True,
+                          text=True, timeout=BENCH_TIMEOUT)
+    if proc.returncode:
+        raise AssertionError(f"{' '.join(args)} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    for line in proc.stdout.splitlines():
+        print(f"  {line}")
+    return printed_tables(proc.stdout)
+
+
+def bench_lines(here, card_line):
+    """python -m repsurf_torch.bench at its defaults: three lines with the
+    three names in order, each value finite and above 0, on this card, the
+    path's kernels launched; returns the lines."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repsurf_torch.bench"], cwd=here,
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    secs = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"repsurf_torch.bench exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    for line in lines:
+        print(f"  {json.dumps(line)}")
+    name, limit = (s.strip() for s in card_line.rsplit(",", 1))
+    if [ln["metric"] for ln in lines] != list(BENCH_METRICS):
+        raise AssertionError(f"bench printed {[ln.get('metric') for ln in lines]}")
+    for line in lines:
+        value = line["value"]
+        if value is None or not math.isfinite(value) or value <= 0:
+            raise AssertionError(f"{line['metric']}: value {value}")
+        if (line["device"], line["power_limit"]) != (name, limit):
+            raise AssertionError(f"{line['metric']}: on {line['device']}, {line['power_limit']}")
+    infer = lines[1]
+    if infer["status"] != "ok" or infer["kernel_build_s"] != 0.0:
+        raise AssertionError(f"bench_infer: status {infer['status']}, the child built the "
+                             f"kernels for {infer['kernel_build_s']} s instead of loading them")
+    launches = {k: sum(ln["launches"][k] for ln in lines) for k in BENCH_KERNELS}
+    print(f"  bench: {secs:.1f} s; kernel launches over the three metrics {launches}; the "
+          f"infer child loaded the built kernels ({infer['kernel_build_s']} s of build)")
+    if min(launches.values()) == 0:
+        raise AssertionError("a kernel of the bench's paths was not launched")
+    return lines
+
+
+def modelnet_fixture(root):
+    """A modelnet40_normal_resampled tree of MODELNET_SHAPES shapes, one a
+    class: unit-sphere clouds of NUM_POINT x,y,z,nx,ny,nz rows.  The txt
+    layout, since the card's machine has no h5py for the h5 one (the CPU
+    tests cover both)."""
+    rng = np.random.RandomState(40)
+    names = [f"shape{i:02d}" for i in range(40)]
+    (Path(root) / "modelnet40_shape_names.txt").write_text("\n".join(names) + "\n")
+    ids = []
+    for i in range(MODELNET_SHAPES):
+        normal = rng.randn(NUM_POINT, 3)
+        normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
+        sid = f"{names[i]}_0001"
+        (Path(root) / names[i]).mkdir()
+        np.savetxt(Path(root) / names[i] / f"{sid}.txt",
+                   np.concatenate([normal * rng.uniform(0.5, 1.0, 3), normal], -1),
+                   delimiter=",", fmt="%.6f")
+        ids.append(sid)
+    (Path(root) / "modelnet40_test.txt").write_text("\n".join(ids) + "\n")
+
+
+def check_modelnet(dev):
+    """A ModelNet40Dataset batch through fps_sample and repsurf_ssg_umb with
+    40 classes on the card, with no conversion: finite [32, 40]."""
+    from repsurf_torch.data import ModelNet40Dataset
+    from repsurf_torch.data.modelnet40 import NUM_CLASS
+    from repsurf_torch.data.transforms import fps_sample
+    from repsurf_torch.ops.kernels import kernel_launches
+    from repsurf_torch.train.train_cls import ClsConfig, build_model
+
+    with tempfile.TemporaryDirectory() as root:
+        modelnet_fixture(root)
+        ds = ModelNet40Dataset(root, "test", num_point=NUM_POINT)
+        pts = np.stack([ds[i][0] for i in range(len(ds))])
+    cfg = ClsConfig(num_class=NUM_CLASS)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    before = kernel_launches()
+    with torch.no_grad():
+        logp = model(fps_sample(torch.from_numpy(pts).to(dev), cfg.num_point))
+    after = kernel_launches()
+    fps_n = sum(after["fps"].values()) - sum(before["fps"].values())
+    tq_n = after["umbrella"]["tq"] - before["umbrella"]["tq"]
+    print(f"  modelnet40: {len(ds)} shapes of {pts.shape[1]} points ({pts.dtype}) -> log-probs "
+          f"{tuple(logp.shape)}, finite {bool(torch.isfinite(logp).all())}; fps {fps_n}, "
+          f"umbrella_tq {tq_n} launches")
+    if logp.shape != (len(ds), NUM_CLASS) or not torch.isfinite(logp).all() or not fps_n * tq_n:
+        raise AssertionError("ModelNet40 batch: wrong shape, not finite or off the kernels")
+
+
+def phase_bench(dev, card_line):
+    """The bench; the profilers' op tables, each from its own process as a
+    user runs it; the window guard diagnostics; ModelNet40."""
+    from repsurf_torch.cli import knn_window_stats
+
+    here = Path(__file__).resolve().parent
+    lines = bench_lines(here, card_line)
+    seg = profiler_cli(here, ["repsurf_torch.cli.profile_seg", "--steps", "3", "--top", "25",
+                              "--fwd", "--scene", str(BENCH_SCENE_RAW)])
+    cls = profiler_cli(here, ["repsurf_torch.cli.profile_cls", "--ops"])
+    found, busy = {}, {}
+    for label, tables, prefix, patterns in (
+            ("seg train step", seg, "train step", SEG_TABLE_KERNELS[:2]),
+            ("seg eval forward", seg, "eval forward", SEG_TABLE_KERNELS),
+            ("whole scene", seg, "whole scene", SEG_TABLE_KERNELS),
+            ("cls eval pipeline", cls, "cls eval pipeline", CLS_TABLE_KERNELS)):
+        busy_ms, wall_ms, found[label] = table_kernels(tables, prefix, patterns)
+        busy[label] = [busy_ms, wall_ms, round(1.0 - busy_ms / wall_ms, 3)]
+    print(f"  kernels in the op tables (device ms a call): {json.dumps(found)}")
+    for label, resolved in knn_window_stats.main([]):
+        if max(resolved) > RESOLVE_LIMIT:
+            raise AssertionError(f"knn_window_stats {label}: {resolved} re-solved "
+                                 f"(limit {RESOLVE_LIMIT})")
+    check_modelnet(dev)
+    values = ", ".join(f"{line['metric']} {line['value']}" for line in lines)
+    print(f"bench: {values}; device busy ms, host wall ms and idle share a call "
+          f"{json.dumps(busy)}")
+
+
 def main():
     profile = "--profile" in sys.argv[1:]
     seconds = {}
     t0 = time.perf_counter()
-    phase_card()
+    card_line = phase_card()
     dev = torch.device("cuda", 0)
     phase_build()
     seconds["card+build"] = time.perf_counter() - t0
@@ -2710,6 +2828,9 @@ def main():
     t0 = time.perf_counter()
     scannet_entries = phase_scannet(dev)
     seconds["scannet+dp"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_bench(dev, card_line)
+    seconds["bench"] = time.perf_counter() - t0
     large = scene_launches["large room"]
     for e in seg_entries:
         kind = e["name"].split("[")[0]
@@ -2727,10 +2848,10 @@ def main():
         else:  # tq: the cls eval slice, the seg style on R2's forwards
             e["launches"] = (launches["umbrella_tq"] if style == "cls"
                              else scene_launches["R2"]["umbrella_seg"])
-    print(f"torch.profiler (device_split): {_PROFILER['traces']} traces, "
-          f"{_PROFILER['retaken']} empty or torn and taken again, "
-          f"{_PROFILER['given_up']} calls not measured, {_PROFILER['pads_lost']} of the "
-          f"{2 * PAD_KERNELS * _PROFILER['traces']} spin kernels not recorded")
+    print(f"torch.profiler (device_split): {PROFILER['traces']} traces, "
+          f"{PROFILER['retaken']} empty or torn and taken again, "
+          f"{PROFILER['given_up']} calls not measured, {PROFILER['pads_lost']} of the "
+          f"{2 * PAD_KERNELS * PROFILER['traces']} spin kernels not recorded")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     kernels = entries + umb_entries + train_entries + seg_entries + family_entries + scannet_entries
     print(json.dumps({"kernels": not_measured_as_null(kernels)}))

@@ -131,6 +131,42 @@ def predict_scene(forward_fn, coord, feat, num_class, **kwargs):
     return votes.argmax(dim=1).cpu().numpy()
 
 
+def scene_batches(coord, feat, voxel_size=0.04, voxel_max=80000, batch_size=4,
+                  data_norm="mean", seed=1000):
+    """The chunk batches of one scene, on the host: voxel passes, chunks,
+    each batch padded to ``padded_size``.  The tail batch holds the chunks
+    that are left: samples are independent in eval mode, so it is not
+    padded with copies.
+
+    Returns:
+      [(batch, rows)]: ``batch`` a dict of ``coord`` [b, n_max, 3],
+      ``feat`` [b, n_max, C] and ``valid`` [b] arrays, ``rows`` [b, n_max]
+      int64 each slot's scene index (N, a spare row, for padding).
+    """
+    passes = voxel_passes(coord, voxel_size)
+    idx_list, coord_list, feat_list = chunk_scene(coord, feat, passes, voxel_max, data_norm,
+                                                  seed=seed)
+    n_max = padded_size(coord_list, voxel_max)
+    out = []
+    for s in range(0, len(idx_list), batch_size):
+        chunks = range(s, min(s + batch_size, len(idx_list)))
+        batch = pad_batch([(coord_list[j], feat_list[j], None) for j in chunks], n_max)
+        rows = np.full((len(chunks), n_max), coord.shape[0], np.int64)
+        for r, j in enumerate(chunks):
+            rows[r, :len(idx_list[j])] = idx_list[j]
+        out.append(({k: batch[k] for k in ("coord", "feat", "valid")}, rows))
+    return out
+
+
+def add_votes(pred, count, logits, idx):
+    """Add one batch's softmax into the float64 vote buffers on the device:
+    ``pred`` [N + 1, C] and ``count`` [N + 1] at ``idx`` [b * n_max], the
+    batch's ``rows`` flattened."""
+    probs = torch.softmax(logits.float(), dim=-1).reshape(-1, pred.shape[1])
+    pred.index_add_(0, idx, probs.double())
+    count.index_add_(0, idx, torch.ones_like(idx, dtype=torch.float64))
+
+
 def scene_votes(forward_fn, coord, feat, num_class, voxel_size=0.04, voxel_max=80000,
                 batch_size=4, data_norm="mean", seed=1000, accumulate="auto", device="cuda"):
     """Vote-accumulate softmax predictions over all chunks of one scene.
@@ -148,42 +184,28 @@ def scene_votes(forward_fn, coord, feat, num_class, voxel_size=0.04, voxel_max=8
         into it with ``index_add_`` and stages the next batch's upload while
         the current one runs, one label read-back per scene.  The two differ
         only in summation order.  'auto': device on a CUDA device.
-      The tail batch holds the chunks that are left: samples are
-      independent in eval mode, so it is not padded with copies.
+      The batches are ``scene_batches``'s.
 
     Returns:
       [N, num_class] float64 vote-averaged softmax: a numpy array ('host')
       or a tensor on ``device`` ('device').
     """
     device = torch.device(device)
-    passes = voxel_passes(coord, voxel_size)
-    idx_list, coord_list, feat_list = chunk_scene(coord, feat, passes, voxel_max, data_norm,
-                                                  seed=seed)
-    n_max = padded_size(coord_list, voxel_max)
+    batches = scene_batches(coord, feat, voxel_size, voxel_max, batch_size, data_norm, seed)
     n_scene = coord.shape[0]
     if accumulate == "auto":
         accumulate = "device" if device.type == "cuda" else "host"
     if accumulate not in ("host", "device"):
         raise ValueError(f"accumulate must be auto, host or device; got {accumulate!r}")
-    starts = list(range(0, len(idx_list), batch_size))
 
-    def stage(s):
-        """Chunks s..s+batch_size on the device, and each slot's scene
-        index (n_scene, a spare row, for padding)."""
-        chunks = range(s, min(s + batch_size, len(idx_list)))
-        batch = pad_batch([(coord_list[j], feat_list[j], None) for j in chunks], n_max)
-        rows = np.full((len(chunks), n_max), n_scene, np.int64)
-        for r, j in enumerate(chunks):
-            rows[r, :len(idx_list[j])] = idx_list[j]
-        tensors = {k: _to_device(batch[k], device) for k in ("coord", "feat", "valid")}
-        return tensors, rows
+    def upload(batch):
+        return {k: _to_device(v, device) for k, v in batch.items()}
 
     if accumulate == "host":
         pred = np.zeros((n_scene + 1, num_class), np.float64)
         count = np.zeros((n_scene + 1, 1), np.float64)
-        for s in starts:
-            batch, rows = stage(s)
-            logits = forward_fn(batch)
+        for batch, rows in batches:
+            logits = forward_fn(upload(batch))
             probs = torch.softmax(logits.float(), dim=-1).cpu().numpy()
             for r in range(rows.shape[0]):
                 pred[rows[r]] += probs[r]
@@ -192,16 +214,12 @@ def scene_votes(forward_fn, coord, feat, num_class, voxel_size=0.04, voxel_max=8
 
     pred = torch.zeros((n_scene + 1, num_class), dtype=torch.float64, device=device)
     count = torch.zeros((n_scene + 1,), dtype=torch.float64, device=device)
-    staged = stage(starts[0])
-    for i in range(len(starts)):
-        batch, rows = staged
-        logits = forward_fn(batch)  # queued on the device
-        if i + 1 < len(starts):
-            staged = stage(starts[i + 1])  # built and uploaded under the forward
-        idx = _to_device(rows.reshape(-1), device)
-        probs = torch.softmax(logits.float(), dim=-1).reshape(-1, num_class)
-        pred.index_add_(0, idx, probs.double())
-        count.index_add_(0, idx, torch.ones_like(idx, dtype=torch.float64))
+    staged = upload(batches[0][0])
+    for i, (_, rows) in enumerate(batches):
+        logits = forward_fn(staged)  # queued on the device
+        if i + 1 < len(batches):
+            staged = upload(batches[i + 1][0])  # uploaded under the forward
+        add_votes(pred, count, logits, _to_device(rows.reshape(-1), device))
     return pred[:n_scene] / torch.clamp(count[:n_scene], min=1.0)[:, None]
 
 

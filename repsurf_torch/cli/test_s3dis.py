@@ -13,7 +13,10 @@ model's state alone, out of the trainer's full payload); without either the
 model keeps its seeded random initialisation.  ``--model_path`` also takes
 a reference ``.pth`` (``train/torch_import.py``), told apart from the
 port's payload by its keys.  ``--device`` defaults to the
-card and raises without one.
+card and raises without one.  ``--profile`` writes a ``torch.profiler``
+Chrome trace of the first scene (``utils.profile_trace``) into the log
+directory: the scene's host stages (the port's ``scene.*`` spans) beside
+the operators and kernels they issue.
 """
 
 import argparse
@@ -52,6 +55,8 @@ def parse_args(argv=None):
                    help="the trainer's --seed, so the val rooms are the same universe")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to evaluate on (cuda, cuda:1, cpu)")
+    p.add_argument("--profile", action="store_true", default=False,
+                   help="write a Chrome trace of the first scene into the log directory")
     return p.parse_args(argv)
 
 
@@ -64,7 +69,7 @@ def main(argv=None):
     from ..train.torch_import import restore_any_weights
     from ..train.eval_s3dis import LABEL2CLASS, median_filter, predict_scene, visualize_scene
     from ..train.train_seg import SegConfig, build_model
-    from ..utils import get_logger
+    from ..utils import get_logger, profile_trace
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -72,7 +77,8 @@ def main(argv=None):
     cfg = SegConfig(model=args.model, group_size=args.group_size,
                     return_polar=args.return_polar)
     exp = os.path.join(args.log_root, "S3DIS", args.log_dir or "default")
-    logger = get_logger(os.path.join(exp, "logs"), "test_s3dis")
+    log_dir = os.path.join(exp, "logs")
+    logger = get_logger(log_dir, "test_s3dis")
     logger.info(cfg)
 
     model = build_model(cfg, generator=torch.Generator().manual_seed(cfg.seed))
@@ -110,12 +116,16 @@ def main(argv=None):
     for si, name in enumerate(names):
         data = load_scene(si, name)
         coord, feat, label = data[:, :3], data[:, 3:6], data[:, 6]
-        pred = predict_scene(forward_fn, coord, feat, cfg.num_class,
-                             voxel_size=args.voxel_size, voxel_max=args.voxel_max,
-                             batch_size=args.batch_size_test, data_norm=args.data_norm,
-                             seed=args.seed, device=device)
-        if args.filter:
-            pred = median_filter(coord.astype(np.float32), pred, 32, device=device)
+        profiled = args.profile and si == 0
+        with profile_trace(log_dir, enabled=profiled):
+            pred = predict_scene(forward_fn, coord, feat, cfg.num_class,
+                                 voxel_size=args.voxel_size, voxel_max=args.voxel_max,
+                                 batch_size=args.batch_size_test, data_norm=args.data_norm,
+                                 seed=args.seed, device=device)
+            if args.filter:
+                pred = median_filter(coord.astype(np.float32), pred, 32, device=device)
+        if profiled:
+            logger.info(f"profiler trace of scene 1 written to {log_dir}")
         counts = intersection_and_union(torch.from_numpy(pred),
                                         torch.from_numpy(label.astype(np.int64)),
                                         cfg.num_class, cfg.ignore_label)

@@ -24,6 +24,7 @@ import torch
 import torch.distributed as dist
 
 from ..nn.layers import MaskedBatchNorm
+from ..utils.spans import span
 from .distributed import process_info
 
 
@@ -134,7 +135,8 @@ def make_cls_train_step(cfg):
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         average_gradients(model)
-        optimizer.step()
+        with span("train.update"):
+            optimizer.step()
         correct = (logp.detach().argmax(dim=-1) == target).sum()
         loss, (correct,) = _mean_and_sums(loss, [correct])
         return loss, correct

@@ -16,6 +16,7 @@ import torch
 from ..data.s3dis import S3DIS_RGB_MEAN, S3DIS_RGB_STD, pad_batch
 from ..data.voxelize import voxelize
 from ..ops.neighbors import knn
+from ..utils.spans import span
 
 # class palette for visualisation dumps (test_s3dis.py:25-31)
 LABEL2COLOR = OrderedDict(
@@ -48,12 +49,13 @@ def voxel_passes(coord, voxel_size):
     of every voxel (test_s3dis.py:114-130)."""
     if not voxel_size:
         return [np.arange(coord.shape[0])]
-    idx_sort, count = voxelize(coord - np.min(coord, 0), voxel_size, mode=1)
-    passes = []
-    for i in range(count.max()):
-        idx_select = np.cumsum(np.insert(count, 0, 0)[0:-1]) + i % count
-        passes.append(idx_sort[idx_select])
-    return passes
+    with span("scene.voxel_passes"):
+        idx_sort, count = voxelize(coord - np.min(coord, 0), voxel_size, mode=1)
+        passes = []
+        for i in range(count.max()):
+            idx_select = np.cumsum(np.insert(count, 0, 0)[0:-1]) + i % count
+            passes.append(idx_sort[idx_select])
+        return passes
 
 
 def input_normalize(coord, feat, data_norm="mean", rgb_mean=S3DIS_RGB_MEAN,
@@ -78,32 +80,34 @@ def chunk_scene(coord, feat, idx_data, voxel_max=80000, data_norm="mean", seed=N
 
     Returns lists of (global_idx, coord, feat) chunks.
     """
-    rng = np.random.RandomState(seed) if seed is not None else np.random
-    idx_list, coord_list, feat_list = [], [], []
-    for idx_part in idx_data:
-        coord_part, feat_part = coord[idx_part], feat[idx_part]
-        if voxel_max and coord_part.shape[0] > voxel_max:
-            potential = rng.rand(coord_part.shape[0]) * 1e-3
-            covered = np.array([], dtype=idx_part.dtype)
-            while covered.size != idx_part.shape[0]:
-                init_idx = np.argmin(potential)
-                dist = np.sum(np.square(coord_part - coord_part[init_idx]), 1)
-                idx_crop = np.argsort(dist)[:voxel_max]
-                dist_c = dist[idx_crop]
-                potential[idx_crop] += np.square(1 - dist_c / np.max(dist_c))
-                c, f = input_normalize(
-                    coord_part[idx_crop].copy(), feat_part[idx_crop].copy(), data_norm
-                )
-                idx_list.append(idx_part[idx_crop])
+    with span("scene.chunk"):
+        rng = np.random.RandomState(seed) if seed is not None else np.random
+        idx_list, coord_list, feat_list = [], [], []
+        for idx_part in idx_data:
+            coord_part, feat_part = coord[idx_part], feat[idx_part]
+            if voxel_max and coord_part.shape[0] > voxel_max:
+                potential = rng.rand(coord_part.shape[0]) * 1e-3
+                covered = np.array([], dtype=idx_part.dtype)
+                while covered.size != idx_part.shape[0]:
+                    with span("scene.crop"):
+                        init_idx = np.argmin(potential)
+                        dist = np.sum(np.square(coord_part - coord_part[init_idx]), 1)
+                        idx_crop = np.argsort(dist)[:voxel_max]
+                        dist_c = dist[idx_crop]
+                        potential[idx_crop] += np.square(1 - dist_c / np.max(dist_c))
+                        c, f = input_normalize(
+                            coord_part[idx_crop].copy(), feat_part[idx_crop].copy(), data_norm
+                        )
+                        idx_list.append(idx_part[idx_crop])
+                        coord_list.append(c)
+                        feat_list.append(f)
+                        covered = np.unique(np.concatenate((covered, idx_part[idx_crop])))
+            else:
+                c, f = input_normalize(coord_part.copy(), feat_part.copy(), data_norm)
+                idx_list.append(idx_part)
                 coord_list.append(c)
                 feat_list.append(f)
-                covered = np.unique(np.concatenate((covered, idx_part[idx_crop])))
-        else:
-            c, f = input_normalize(coord_part.copy(), feat_part.copy(), data_norm)
-            idx_list.append(idx_part)
-            coord_list.append(c)
-            feat_list.append(f)
-    return idx_list, coord_list, feat_list
+        return idx_list, coord_list, feat_list
 
 
 def padded_size(coord_list, voxel_max):
@@ -143,19 +147,21 @@ def scene_batches(coord, feat, voxel_size=0.04, voxel_max=80000, batch_size=4,
       ``feat`` [b, n_max, C] and ``valid`` [b] arrays, ``rows`` [b, n_max]
       int64 each slot's scene index (N, a spare row, for padding).
     """
-    passes = voxel_passes(coord, voxel_size)
-    idx_list, coord_list, feat_list = chunk_scene(coord, feat, passes, voxel_max, data_norm,
-                                                  seed=seed)
-    n_max = padded_size(coord_list, voxel_max)
-    out = []
-    for s in range(0, len(idx_list), batch_size):
-        chunks = range(s, min(s + batch_size, len(idx_list)))
-        batch = pad_batch([(coord_list[j], feat_list[j], None) for j in chunks], n_max)
-        rows = np.full((len(chunks), n_max), coord.shape[0], np.int64)
-        for r, j in enumerate(chunks):
-            rows[r, :len(idx_list[j])] = idx_list[j]
-        out.append(({k: batch[k] for k in ("coord", "feat", "valid")}, rows))
-    return out
+    with span("scene.prepare"):
+        passes = voxel_passes(coord, voxel_size)
+        idx_list, coord_list, feat_list = chunk_scene(coord, feat, passes, voxel_max,
+                                                      data_norm, seed=seed)
+        with span("scene.pad"):
+            n_max = padded_size(coord_list, voxel_max)
+            out = []
+            for s in range(0, len(idx_list), batch_size):
+                chunks = range(s, min(s + batch_size, len(idx_list)))
+                batch = pad_batch([(coord_list[j], feat_list[j], None) for j in chunks], n_max)
+                rows = np.full((len(chunks), n_max), coord.shape[0], np.int64)
+                for r, j in enumerate(chunks):
+                    rows[r, :len(idx_list[j])] = idx_list[j]
+                out.append(({k: batch[k] for k in ("coord", "feat", "valid")}, rows))
+        return out
 
 
 def add_votes(pred, count, logits, idx):
@@ -199,27 +205,33 @@ def scene_votes(forward_fn, coord, feat, num_class, voxel_size=0.04, voxel_max=8
         raise ValueError(f"accumulate must be auto, host or device; got {accumulate!r}")
 
     def upload(batch):
-        return {k: _to_device(v, device) for k, v in batch.items()}
+        with span("scene.upload"):
+            return {k: _to_device(v, device) for k, v in batch.items()}
 
     if accumulate == "host":
         pred = np.zeros((n_scene + 1, num_class), np.float64)
         count = np.zeros((n_scene + 1, 1), np.float64)
         for batch, rows in batches:
-            logits = forward_fn(upload(batch))
-            probs = torch.softmax(logits.float(), dim=-1).cpu().numpy()
-            for r in range(rows.shape[0]):
-                pred[rows[r]] += probs[r]
-                count[rows[r]] += 1.0
+            staged = upload(batch)
+            with span("scene.forward"):
+                logits = forward_fn(staged)
+            with span("scene.vote"):
+                probs = torch.softmax(logits.float(), dim=-1).cpu().numpy()
+                for r in range(rows.shape[0]):
+                    pred[rows[r]] += probs[r]
+                    count[rows[r]] += 1.0
         return pred[:n_scene] / np.maximum(count[:n_scene], 1.0)
 
     pred = torch.zeros((n_scene + 1, num_class), dtype=torch.float64, device=device)
     count = torch.zeros((n_scene + 1,), dtype=torch.float64, device=device)
     staged = upload(batches[0][0])
     for i, (_, rows) in enumerate(batches):
-        logits = forward_fn(staged)  # queued on the device
+        with span("scene.forward"):
+            logits = forward_fn(staged)  # queued on the device
         if i + 1 < len(batches):
             staged = upload(batches[i + 1][0])  # uploaded under the forward
-        add_votes(pred, count, logits, _to_device(rows.reshape(-1), device))
+        with span("scene.vote"):
+            add_votes(pred, count, logits, _to_device(rows.reshape(-1), device))
     return pred[:n_scene] / torch.clamp(count[:n_scene], min=1.0)[:, None]
 
 

@@ -24,6 +24,7 @@ from ..data.scanobjectnn import iterate_batches
 from ..data.transforms import fps_sample, scale_point_cloud, transform_point_cloud
 from ..models import get_model
 from ..nn.losses import smooth_cls_loss
+from ..utils.spans import span
 from .optim import make_adam, make_sgd, set_lr, step_lr
 
 
@@ -99,17 +100,18 @@ def _random_sign(batch, generator, device):
 def train_forward(model, points, cfg, generator=None, signs=None):
     """The training forward of ``train_step``: FPS, the augmentation, the
     normal inversion and the dropout draws (see there) -> log-probs."""
-    model.train()
-    pts = fps_sample(points, cfg.num_point)
-    if cfg.aug_scale or cfg.aug_shift:
-        xyz = transform_point_cloud(pts[..., :3], generator=generator,
-                                    aug_scale=cfg.aug_scale, aug_shift=cfg.aug_shift)
-        pts = torch.cat([xyz, pts[..., 3:]], dim=-1)
-    if signs is None:
-        if generator is None:
-            raise ValueError("the random normal inversion needs a generator")
-        signs = _random_sign(pts.shape[0], generator, pts.device)
-    return model(pts, inv_sign=signs, generator=generator)
+    with span("train.forward"):
+        model.train()
+        pts = fps_sample(points, cfg.num_point)
+        if cfg.aug_scale or cfg.aug_shift:
+            xyz = transform_point_cloud(pts[..., :3], generator=generator,
+                                        aug_scale=cfg.aug_scale, aug_shift=cfg.aug_shift)
+            pts = torch.cat([xyz, pts[..., 3:]], dim=-1)
+        if signs is None:
+            if generator is None:
+                raise ValueError("the random normal inversion needs a generator")
+            signs = _random_sign(pts.shape[0], generator, pts.device)
+        return model(pts, inv_sign=signs, generator=generator)
 
 
 def train_step(model, optimizer, points, target, cfg, generator=None, signs=None):
@@ -129,8 +131,10 @@ def train_step(model, optimizer, points, target, cfg, generator=None, signs=None
     logp = train_forward(model, points, cfg, generator, signs)
     loss = smooth_cls_loss(logp, target)
     optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    optimizer.step()
+    with span("train.backward"):
+        loss.backward()
+    with span("train.update"):
+        optimizer.step()
     correct = (logp.detach().argmax(dim=-1) == target).sum()
     return loss.detach(), correct
 
@@ -199,23 +203,25 @@ def eval_step(model, points, target, cfg, generator=None, uniforms=None, signs=N
     if generator is None and (uniforms is None or signs is None):
         raise ValueError("give a generator for the draws that are not injected")
     with torch.inference_mode():
-        pts = fps_sample(points, cfg.num_point)
+        with span("serve.sample"):
+            pts = fps_sample(points, cfg.num_point)
         vote_sum, single = 0.0, None
         for i in range(cfg.num_votes):
-            p = pts
-            if i > 0:
-                u = None if uniforms is None else uniforms[i - 1]
-                p = scale_point_cloud(
-                    pts, generator=None if u is not None else generator, uniforms=u
+            with span("serve.forward"):
+                p = pts
+                if i > 0:
+                    u = None if uniforms is None else uniforms[i - 1]
+                    p = scale_point_cloud(
+                        pts, generator=None if u is not None else generator, uniforms=u
+                    )
+                sign = (
+                    signs[i] if signs is not None
+                    else _random_sign(pts.shape[0], generator, pts.device)
                 )
-            sign = (
-                signs[i] if signs is not None
-                else _random_sign(pts.shape[0], generator, pts.device)
-            )
-            logp = model(p, inv_sign=sign)
-            if i == 0:
-                single = logp
-            vote_sum = vote_sum + logp
+                logp = model(p, inv_sign=sign)
+                if i == 0:
+                    single = logp
+                vote_sum = vote_sum + logp
         single_correct = (single.argmax(-1) == target).sum()
         vote_correct = (vote_sum.argmax(-1) == target).sum()
     return single_correct, vote_correct, vote_sum

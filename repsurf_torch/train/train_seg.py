@@ -25,6 +25,7 @@ from ..models import get_model
 from ..nn.layers import Dropout
 from ..nn.losses import weighted_cross_entropy
 from ..nn.metrics import intersection_and_union
+from ..utils.spans import span
 from .optim import make_adamw, make_sgd, multistep_lr
 
 FROZEN_SCOPE = "surface_constructor"
@@ -112,31 +113,33 @@ def train_forward(model, batch, generator=None):
     """The training forward of ``train_step`` (``model.train()``, the
     normal inversion drawn from ``generator`` when ``model.random_inv``,
     the head's dropout from it when the model has one) -> logits."""
-    model.train()
-    coord = batch["coord"]
-    kwargs = {}
-    if getattr(model, "random_inv", False):
-        if generator is None:
-            raise ValueError("the random normal inversion needs a generator")
-        kwargs["inv_sign"] = _random_sign(coord.shape[0], generator, coord.device)
-    if any(isinstance(m, Dropout) for m in model.modules()):
-        kwargs["generator"] = generator
-    return model(coord, batch["feat"], batch["valid"], **kwargs)
+    with span("train.forward"):
+        model.train()
+        coord = batch["coord"]
+        kwargs = {}
+        if getattr(model, "random_inv", False):
+            if generator is None:
+                raise ValueError("the random normal inversion needs a generator")
+            kwargs["inv_sign"] = _random_sign(coord.shape[0], generator, coord.device)
+        if any(isinstance(m, Dropout) for m in model.modules()):
+            kwargs["generator"] = generator
+        return model(coord, batch["feat"], batch["valid"], **kwargs)
 
 
 def apply_update(model, optimizer, freeze=False):
     """The optimizer step on the gradients in ``.grad``; with ``freeze``
     the surface constructor's gradients are zeroed first and its parameters
     restored after (see the module doc)."""
-    scope = getattr(model, FROZEN_SCOPE, None) if freeze else None
-    frozen = [] if scope is None else list(scope.parameters())
-    saved = [p.detach().clone() for p in frozen]
-    for p in frozen:
-        p.grad = torch.zeros_like(p)
-    optimizer.step()
-    with torch.no_grad():
-        for p, s in zip(frozen, saved):
-            p.copy_(s)
+    with span("train.update"):
+        scope = getattr(model, FROZEN_SCOPE, None) if freeze else None
+        frozen = [] if scope is None else list(scope.parameters())
+        saved = [p.detach().clone() for p in frozen]
+        for p in frozen:
+            p.grad = torch.zeros_like(p)
+        optimizer.step()
+        with torch.no_grad():
+            for p, s in zip(frozen, saved):
+                p.copy_(s)
 
 
 def train_step(model, optimizer, batch, class_weight, cfg, generator=None, freeze=False):
@@ -160,7 +163,8 @@ def train_step(model, optimizer, batch, class_weight, cfg, generator=None, freez
     logits = train_forward(model, batch, generator)
     loss = weighted_cross_entropy(logits, label, class_weight, cfg.ignore_label)
     optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    with span("train.backward"):
+        loss.backward()
     apply_update(model, optimizer, freeze)
     pred = predict(logits.detach(), cfg)
     return loss.detach(), intersection_and_union(pred, label, cfg.num_class,

@@ -1,8 +1,9 @@
 """Checked ``torch.profiler`` traces: device self time by kernel.
 
 Now and then a trace records no device activity at all (about one in 2,400
-on an H100, ``probes/cupti_teardown.py``), or only part of it: a trace in
-which some kernel's count is not a multiple of the calls traced is torn.
+on an H100; CHANGES.md, under the entry that added these checks), or only
+part of it: a trace in which some kernel's count is not a multiple of the
+calls traced is torn.
 Late in a long run every trace came back short by the same few records, so
 each traced window sits between ``PAD_KERNELS`` spin kernels at either end,
 which are left out of the times.  A torn or empty trace is taken again

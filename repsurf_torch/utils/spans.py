@@ -1,0 +1,37 @@
+"""Named spans at the port's layer boundaries, for ``torch.profiler``.
+
+``span(name)`` is ``torch.profiler.record_function(name)`` while a profiler
+records, and one shared ``contextlib.nullcontext()`` otherwise: a bare
+``record_function`` costs several microseconds a span even with no
+profiler running, the check well under one.  A span shows in the
+profiler's trace as a ``user_annotation`` interval beside the operators
+and kernels it issued, on the same clock; spans nest by call.
+
+Names are ``<layer>.<stage>``:
+
+* ``scene.prepare`` (``eval_s3dis.scene_batches``: a room's host
+  preprocessing), inside it ``scene.voxel_passes``, ``scene.chunk`` (the
+  cropper; one ``scene.crop`` a crop) and ``scene.pad``; then a batch's
+  ``scene.upload``, ``scene.forward`` and ``scene.vote`` (``scene_votes``);
+* ``train.forward``, ``train.backward``, ``train.update`` (both train
+  steps; the forward and the update also in the data-parallel steps);
+* ``serve.sample`` and one ``serve.forward`` a vote (``train_cls.eval_step``).
+
+Counts come from the spans: the number of ``scene.crop`` spans is the
+number of crops.  No model or kernel holds a span: its host time is launch
+time alone.
+"""
+
+import contextlib
+
+import torch
+
+_NULL = contextlib.nullcontext()
+
+
+def span(name):
+    """A context manager that marks ``name`` in a recording profiler's
+    trace, and does nothing when none records."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NULL

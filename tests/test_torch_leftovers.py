@@ -13,6 +13,7 @@ import torch
 
 from repsurf_torch.data import synthetic_object as tso
 from repsurf_torch.models import get_model as t_get_model
+from repsurf_torch.train.eval_s3dis import voxel_passes
 from repsurf_torch.utils import profile_trace
 from repsurf_tpu.data import synthetic_object as jso
 from repsurf_tpu.models import get_model as j_get_model
@@ -59,11 +60,14 @@ def test_repsurf_ssg_umb_2x_has_the_reference_size():
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
     with profile_trace(str(tmp_path)) as prof:
         torch.ones(64, 64) @ torch.ones(64, 64)
+        voxel_passes(np.random.RandomState(0).rand(500, 3), 0.1)
     assert prof is not None
     traces = list(tmp_path.glob("trace_*.json"))
     assert len(traces) == 1
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any("mm" in e.get("name", "") for e in events)
+    assert any(e.get("name") == "scene.voxel_passes" and e.get("cat") == "user_annotation"
+               for e in events)  # the port's own span
     with profile_trace(str(tmp_path / "off"), enabled=False) as prof:
         pass
     assert prof is None and not (tmp_path / "off").exists()

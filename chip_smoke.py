@@ -249,6 +249,7 @@ CLS_TABLE_KERNELS = ("fps_kernel", "umbrella_tq_kernel", "ball_feature_kernel")
 MODELNET_SHAPES = 32  # a [32, 1024] batch from the ModelNet40 fixture
 # H100 SXM data sheet: float32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+FADD_CYCLES, SM_CLOCK_HZ = 4, 1.98e9  # a dependent float32 add; the H100 SXM's boost clock
 KNN_FLOPS = 8  # one squared distance: 3 differences, 3 products, 2 sums
 PTXAS_KERNELS = (  # (label, a substring of the mangled name) for the build's report
     ("knn_kernel<32>", "knn_kernelILi32EE"),
@@ -267,6 +268,8 @@ PTXAS_KERNELS = (  # (label, a substring of the mangled name) for the build's re
     ("ball_feature_kernel_wide", "24ball_feature_kernel_wideE"),
     ("ball_group_kernel", "17ball_group_kernelE"),
     ("ball_group_kernel_wide", "22ball_group_kernel_wideE"),
+    ("chunk_mean_kernel<float>", "chunk_mean_kernelIfE"),
+    ("chunk_mean_kernel<double>", "chunk_mean_kernelIdE"),
 )
 FPS_FLOPS = 9  # a distance and the running minimum
 
@@ -1937,11 +1940,13 @@ def phase_scene(dev):
     the seg-style umbrella kernel); device against host mode; one R2 batch
     on the kernel path against the plain path; then the test CLI."""
     from repsurf_torch.data.s3dis import pad_batch
+    from repsurf_torch.ops.kernels.chunk_mean import chunk_mean
     from repsurf_torch.ops.kernels.fps import fps
     from repsurf_torch.ops.kernels.knn import knn_brute
     from repsurf_torch.ops.kernels.knn_window import knn_window
     from repsurf_torch.train.eval_s3dis import (
         chunk_scene,
+        device_batches,
         median_filter,
         padded_size,
         scene_votes,
@@ -1960,15 +1965,16 @@ def phase_scene(dev):
     rooms = {"R1": labeled_room(R1_POINTS, (8.0, 8.0, 3.0), rng),
              "R2": labeled_room(R2_POINTS, SEG_ROOM_SIZE, rng)}
     kw = dict(voxel_size=0.04, voxel_max=SEG_POINTS, batch_size=4, data_norm="mean", seed=1000)
-    counters = (fps, knn_window, knn_brute)
+    counters = (fps, knn_window, knn_brute, chunk_mean)
     launches = {}
     for name, (coord, rgb, _) in rooms.items():
         chunks = chunk_scene(coord, rgb, voxel_passes(coord, kw["voxel_size"]),
                              kw["voxel_max"], kw["data_norm"], seed=kw["seed"])
-        n_pad = padded_size(chunks[1], kw["voxel_max"])
+        n_pad = padded_size([len(c) for c in chunks[1]], kw["voxel_max"])
         for c in counters:
             c.launches = 0
         reset_umbrella_counts()
+        device_batches.crops.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         votes = scene_votes(forward_fn, coord, rgb, cfg.num_class, accumulate="device",
@@ -1985,7 +1991,8 @@ def phase_scene(dev):
         print(f"scene {name}: {len(coord)} points, {len(chunks[0])} chunks padded to {n_pad}: "
               f"predict_scene (device votes) {t_pred:.3f} s, with the median filter "
               f"{t_all:.3f} s (host clock); launches {counts}, umbrella by style {by_style}, "
-              f"window kNN in the median filter {filter_window}")
+              f"window kNN in the median filter {filter_window}; crops by where they were "
+              f"cut {dict(device_batches.crops)}")
         launches[name] = dict(counts, umbrella_seg=by_style["seg"])
         if not torch.isfinite(votes).all() or pred.shape != (len(coord),):
             raise AssertionError(f"{name}: votes not finite or of the wrong shape")
@@ -2010,7 +2017,7 @@ def phase_scene(dev):
     coord, rgb, _ = rooms["R2"]
     idx_list, coord_list, feat_list = chunk_scene(coord, rgb, voxel_passes(coord, 0.04),
                                                   kw["voxel_max"], "mean", seed=kw["seed"])
-    n_pad = padded_size(coord_list, kw["voxel_max"])
+    n_pad = padded_size([len(c) for c in coord_list], kw["voxel_max"])
     batch = pad_batch([(c, f, None) for c, f in zip(coord_list[:4], feat_list[:4])], n_pad)
     batch = {k: torch.from_numpy(batch[k]).to(dev) for k in ("coord", "feat", "valid")}
     logits = forward_fn(batch)
@@ -2048,6 +2055,130 @@ def phase_scene(dev):
         raise AssertionError("test_s3dis printed no mIoU/mAcc/OA line")
     launches["large room"] = large_room_cli(here)
     return launches
+
+
+def cell_rooms():
+    """The scene cell's 8 frozen rooms (``benchmark/traffic/scene_rooms_220k``)
+    and its protocol (the configuration's ``infer``)."""
+    from benchmark.data.synthetic_scene import raw_room
+
+    here = Path(__file__).resolve().parent
+    traffic = json.loads((here / "benchmark/traffic/scene_rooms_220k.json").read_text())
+    config = json.loads((here / "benchmark/configs/repsurf_umb_ssg.s3dis.json").read_text())
+    content = np.random.RandomState(traffic["room_seed"])
+    rooms = [raw_room(content, traffic["raw_points"], size)[:2]
+             for size in traffic["room_sizes"]]
+    return rooms, config["infer"]
+
+
+def phase_scene_device(dev):
+    """A room's chunks cut on the card (``eval_s3dis.device_batches``) on the
+    scene cell's 8 rooms against the benchmark's numpy reference
+    (``benchmark/reference/scene.chunks``): every chunk's rows and each row's
+    colour equal, each row's coordinates the reference's normalisation of
+    the chunk in the card's order bit for bit (so ``chunk_mean`` is numpy's
+    ``np.mean`` on real crops), how far the order of tied points moved a
+    chunk's mean from the reference's, the crops by where they were cut,
+    and a room's preparation on the card against the host's (host clock
+    around synchronised calls).  Then ``chunk_mean`` alone on the
+    reference's crops in numpy's order, bit-equal to ``np.mean`` in float32
+    and float64; one kernels-JSON entry, whose launches are one
+    ``scene_votes`` on a cell room."""
+    from benchmark.reference import scene
+    from repsurf_torch.ops.kernels.chunk_mean import chunk_mean, chunk_mean_plain
+    from repsurf_torch.train.eval_s3dis import device_batches, scene_batches, scene_votes
+
+    rooms, inf = cell_rooms()
+    kw = dict(voxel_size=inf["voxel_size"], voxel_max=inf["voxel_max"],
+              batch_size=inf["batch_size"], data_norm="mean", seed=inf["chunk_seed"])
+    stats = [np.array(inf[k], np.float32) for k in ("rgb_mean", "rgb_std")]
+    device_batches.crops.clear()
+    crops_raw, moved, ulps = [], 0, 0.0
+    for j, (coord, rgb) in enumerate(rooms):
+        ref = scene.chunks(coord, rgb, inf)
+        batches = scene_batches(coord, rgb, device=dev, **kw)
+        rows = torch.cat([r for _, r in batches]).cpu().numpy()
+        xyz = torch.cat([b["coord"] for b, _ in batches]).cpu().numpy()
+        fea = torch.cat([b["feat"] for b, _ in batches]).cpu().numpy()
+        if rows.shape[0] != len(ref):
+            raise AssertionError(f"room {j}: {rows.shape[0]} chunks on the card, {len(ref)} "
+                                 f"in the reference")
+        tied = 0
+        for k, (idx, _, f) in enumerate(ref):
+            m = len(idx)
+            r = rows[k, :m]
+            a, b = np.argsort(idx, kind="stable"), np.argsort(r, kind="stable")
+            if not (np.array_equal(idx[a], r[b])
+                    and np.array_equal(f[a].view(np.int32), fea[k, :m][b].view(np.int32))):
+                raise AssertionError(f"room {j} chunk {k}: rows or colours differ from the "
+                                     f"reference")
+            mine = scene.normalize(coord[r], rgb[r], *stats)[0]
+            if not np.array_equal(mine.view(np.int32), xyz[k, :m].view(np.int32)):
+                raise AssertionError(f"room {j} chunk {k}: coordinates are not np.mean's "
+                                     f"normalisation of the chunk in the card's order")
+            if not ((xyz[k, m:] == xyz[k, 0]).all() and (fea[k, m:] == 0).all()
+                    and (rows[k, m:] == len(coord)).all()):
+                raise AssertionError(f"room {j} chunk {k}: padding differs from pad_batch's")
+            tied += int((idx != r).sum())
+            theirs, ours = np.mean(coord[idx], 0), np.mean(coord[r], 0)
+            if not np.array_equal(theirs, ours):
+                moved += 1
+                ulps = max(ulps, float((np.abs(ours - theirs) / np.spacing(np.abs(theirs))).max()))
+            crops_raw.append(coord[idx])
+        print(f"  room {j}: {len(coord)} points, {len(ref)} chunks equal to the reference "
+              f"(rows, colours, padding; coordinates np.mean's of the card's order; {tied} "
+              f"slots hold a tied point in another order)")
+    crops = dict(device_batches.crops)
+    card_s, host_s = [], []
+    for coord, rgb in rooms:  # warm: each room was cut once above
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scene_batches(coord, rgb, device=dev, **kw)
+        torch.cuda.synchronize()
+        card_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        scene_batches(coord, rgb, device="cpu", **kw)
+        host_s.append(time.perf_counter() - t0)
+    print(f"  a room prepared on the card, ms: {[round(t * 1e3, 1) for t in card_s]}; on the "
+          f"host: {[round(t * 1e3, 1) for t in host_s]}")
+    print(f"scene chunks on the card: {len(crops_raw)} chunks of {len(rooms)} rooms equal to the "
+          f"reference; {moved} chunk means moved by the order of tied points, at most {ulps:g} "
+          f"ulps; crops {crops}; a room prepared in {statistics.median(card_s) * 1e3:.1f} ms "
+          f"on the card against {statistics.median(host_s) * 1e3:.1f} ms on the host (medians, "
+          f"host clock)")
+
+    chunk_mean.launches = 0
+    coord, rgb = rooms[0]
+    scene_votes(lambda batch: torch.zeros(batch["coord"].shape[:2] + (13,), device=dev),
+                coord, rgb, 13, device=dev, **kw)
+    launches = chunk_mean.launches
+    print(f"  scene_votes on room 0: chunk_mean launched {launches} times")
+    if launches != 1:
+        raise AssertionError(f"scene_votes launched chunk_mean {launches} times, not once")
+
+    x = torch.from_numpy(np.stack(crops_raw)).to(dev)
+    errs = []
+    for dtype in (torch.float32, torch.float64):
+        xs = x.to(dtype)
+        got, want = chunk_mean(xs), chunk_mean_plain(xs.cpu())
+        errs.append(float((got.cpu() - want).abs().max()))
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"chunk_mean {dtype}: not bit-equal to np.mean "
+                                 f"(max |diff| {errs[-1]:.3g})")
+        print(f"  chunk_mean [{x.shape[0]}x{x.shape[1]}x3] {dtype}: bit-equal to np.mean")
+    b, n, d = x.shape
+    room = x[:28]  # about a room's chunks, one launch
+    entry = _entry(
+        f"chunk_mean[{room.shape[0]}x{n}x{d}]", "repsurf_torch/csrc/chunk_mean.cu",
+        "none (numpy np.mean on the host)", max(errs), lambda: chunk_mean(room),
+        lambda: chunk_mean_plain(room.cpu()),
+        (room.numel(), room.numel() * 4 + room.shape[0] * d * 4), timer=adaptive_ms)
+    # the bound that holds: one thread's chain of n dependent float32 adds
+    entry["chain_bound_ms"] = n * FADD_CYCLES / SM_CLOCK_HZ * 1e3
+    print(f"    chunk_mean: the chain of {n} dependent adds at {FADD_CYCLES} cycles and "
+          f"{SM_CLOCK_HZ / 1e9:.2f} GHz takes {entry['chain_bound_ms']:.4f} ms")
+    entry["launches"] = launches
+    return entry
 
 
 def large_room_cli(here):
@@ -2823,6 +2954,9 @@ def main():
     scene_launches = phase_scene(dev)
     seconds["scene"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    chunk_entry = phase_scene_device(dev)
+    seconds["scene chunks on the card"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     family_entries = phase_families(dev)
     seconds["model families"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2853,7 +2987,8 @@ def main():
           f"{PROFILER['given_up']} calls not measured, {PROFILER['pads_lost']} of the "
           f"{2 * PAD_KERNELS * PROFILER['traces']} spin kernels not recorded")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
-    kernels = entries + umb_entries + train_entries + seg_entries + family_entries + scannet_entries
+    kernels = (entries + umb_entries + train_entries + seg_entries + family_entries
+               + scannet_entries + [chunk_entry])
     print(json.dumps({"kernels": not_measured_as_null(kernels)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

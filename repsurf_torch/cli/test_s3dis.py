@@ -67,7 +67,13 @@ def main(argv=None):
     from ..ops.kernels import kernel_launches
     from ..train.checkpoint import restore_weights
     from ..train.torch_import import restore_any_weights
-    from ..train.eval_s3dis import LABEL2CLASS, median_filter, predict_scene, visualize_scene
+    from ..train.eval_s3dis import (
+        LABEL2CLASS,
+        device_batches,
+        median_filter,
+        predict_scene,
+        visualize_scene,
+    )
     from ..train.train_seg import SegConfig, build_model
     from ..utils import get_logger, profile_trace
 
@@ -142,6 +148,7 @@ def main(argv=None):
         logger.info(f"class {i} ({LABEL2CLASS[i]}): IoU/Acc "
                     f"{float(iou_class[i]) * 100:.2f}/{float(acc_class[i]) * 100:.2f}")
     logger.info(f"kernel launches {json.dumps(kernel_launches())}")
+    logger.info(f"crops by where they were cut {json.dumps(dict(device_batches.crops))}")
     return miou, macc, allacc
 
 

@@ -3,7 +3,7 @@ version.
 
 Every wrapper (``fps.fps``, ``umbrella.umbrella_features_kernel``,
 ``ball_group.ball_group_feature``, ``ball_group.ball_group_channels``,
-``knn.knn_brute``, ``knn_window.knn_window``) runs the plain version for a
+``knn.knn_brute``, ``knn_window.knn_window``, ``chunk_mean.chunk_mean``) runs the plain version for a
 tensor on the CPU and launches its kernel for a tensor on a CUDA device,
 counting launches in its ``launches`` attributes.  The umbrella and ball
 wrappers are ``torch.autograd.Function``s on a CUDA device; the ball
@@ -18,8 +18,10 @@ def kernel_launches():
     the plain versions run): FPS by route, window kNN and its re-solve,
     brute kNN by route, both kNN kernels by k, FPS and both kNN kernels by
     shape ("BxN->M", kNN with ",k=K"), the ball-feature kernel and its
-    backward by channel count, the umbrella kernel by impl."""
+    backward by channel count, the umbrella kernel by impl, the chunk
+    mean."""
     from .ball_group import ball_group_feature
+    from .chunk_mean import chunk_mean
     from .fps import fps
     from .knn import knn_brute
     from .knn_window import knn_window
@@ -35,4 +37,5 @@ def kernel_launches():
             "knn_brute_by_shape": dict(knn_brute.launches_by_shape),
             "ball_feature_by_c": dict(ball_group_feature.launches_by_channels),
             "ball_feature_bwd_by_c": dict(ball_group_feature.backward_launches_by_channels),
-            "umbrella": dict(umbrella_features_kernel.launches)}
+            "umbrella": dict(umbrella_features_kernel.launches),
+            "chunk_mean": chunk_mean.launches}

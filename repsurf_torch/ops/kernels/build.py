@@ -80,6 +80,7 @@ _SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     ),
     "repsurf_knn_window_max_k": (_I, []),
+    "repsurf_chunk_mean": (_I, [_P, _P, _I, _I, _I, _I, _P, _P]),
 }
 
 

@@ -9,10 +9,15 @@ and kernels it issued, on the same clock; spans nest by call.
 
 Names are ``<layer>.<stage>``:
 
-* ``scene.prepare`` (``eval_s3dis.scene_batches``: a room's host
+* ``scene.prepare`` (``eval_s3dis.scene_batches``: a room's
   preprocessing), inside it ``scene.voxel_passes``, ``scene.chunk`` (the
   cropper; one ``scene.crop`` a crop) and ``scene.pad``; then a batch's
-  ``scene.upload``, ``scene.forward`` and ``scene.vote`` (``scene_votes``);
+  ``scene.upload``, ``scene.forward`` and ``scene.vote`` (``scene_votes``).
+  On a CUDA device the chunks are cut on the card (``device_batches``):
+  ``scene.prepare`` then holds device work and one sync a crop, the room's
+  one ``scene.upload`` comes before ``scene.chunk``, and a crop cut again
+  on the host by ``np.argsort`` at a boundary tie is a ``scene.crop_host``
+  inside its ``scene.crop``; the batches need no upload;
 * ``train.forward``, ``train.backward``, ``train.update`` (both train
   steps; the forward and the update also in the data-parallel steps);
 * ``serve.sample`` and one ``serve.forward`` a vote (``train_cls.eval_step``).

@@ -9,6 +9,9 @@ points than that gets missing slots, (index 0, distance sqrt(1e10)), and
 the attention's softmax runs over them unmasked, as in the JAX package.
 Module attribute names follow the reference's torch modules (``linear_q``,
 ``linear_p.0``, ``linear_w.2``, ``linear1``, ``bn1``, ``transformer2``...).
+
+Spans (``utils/spans.py``): ``pt.attention`` a vector attention layer,
+``pt.down`` a strided TransitionDown, ``pt.up`` a TransitionUp.
 """
 
 import torch
@@ -18,6 +21,7 @@ from ..ops.gather import index_points
 from ..ops.interpolate import three_interpolate
 from ..ops.masking import counts_to_mask
 from ..ops.neighbors import knn
+from ..utils.spans import span
 from .blocks import _mask, sample
 from .layers import Linear, MaskedBatchNorm
 
@@ -53,16 +57,18 @@ class PointTransformerLayer(nn.Module):
 
     def forward(self, pos, feat, valid=None):
         """pos [B,N,3], feat [B,N,C] -> [B, N, out_planes]."""
-        b, n, _ = pos.shape
-        x_q, x_k, x_v = self.linear_q(feat), self.linear_k(feat), self.linear_v(feat)
-        idx, _ = knn(self.nsample, pos, pos, valid=valid)
-        mask = _mask(valid, n)  # [B, N, 1], broadcast over the neighbours
-        pe = _run(self.linear_p, index_points(pos, idx) - pos[:, :, None], mask)
-        w = index_points(x_k, idx) - x_q[:, :, None] + pe
-        w = torch.softmax(_run(self.linear_w, w, mask), dim=2)
-        s = self.share_planes
-        v = (index_points(x_v, idx) + pe).reshape(b, n, self.nsample, s, self.out_planes // s)
-        return (v * w[:, :, :, None, :]).sum(dim=2).reshape(b, n, self.out_planes)
+        with span("pt.attention"):
+            b, n, _ = pos.shape
+            x_q, x_k, x_v = self.linear_q(feat), self.linear_k(feat), self.linear_v(feat)
+            idx, _ = knn(self.nsample, pos, pos, valid=valid)
+            mask = _mask(valid, n)  # [B, N, 1], broadcast over the neighbours
+            pe = _run(self.linear_p, index_points(pos, idx) - pos[:, :, None], mask)
+            w = index_points(x_k, idx) - x_q[:, :, None] + pe
+            w = torch.softmax(_run(self.linear_w, w, mask), dim=2)
+            s = self.share_planes
+            v = (index_points(x_v, idx) + pe).reshape(b, n, self.nsample, s,
+                                                      self.out_planes // s)
+            return (v * w[:, :, :, None, :]).sum(dim=2).reshape(b, n, self.out_planes)
 
 
 class TransitionDown(nn.Module):
@@ -84,13 +90,14 @@ class TransitionDown(nn.Module):
         if self.stride == 1:
             x = self.bn(self.linear(feat), mask=_mask(valid, pos.shape[1]))
             return pos, torch.relu(x), valid
-        idx, new_valid = sample(pos, None, self.stride, valid, self.num_sector, self.training)
-        new_pos = index_points(pos, idx)
-        gidx, _ = knn(self.nsample, pos, new_pos, valid=valid)
-        x = torch.cat([index_points(pos, gidx) - new_pos[:, :, None], index_points(feat, gidx)],
-                      dim=-1)
-        x = self.bn(self.linear(x), mask=_mask(new_valid, new_pos.shape[1]))
-        return new_pos, torch.relu(x).amax(dim=2), new_valid
+        with span("pt.down"):
+            idx, new_valid = sample(pos, None, self.stride, valid, self.num_sector, self.training)
+            new_pos = index_points(pos, idx)
+            gidx, _ = knn(self.nsample, pos, new_pos, valid=valid)
+            x = torch.cat([index_points(pos, gidx) - new_pos[:, :, None],
+                           index_points(feat, gidx)], dim=-1)
+            x = self.bn(self.linear(x), mask=_mask(new_valid, new_pos.shape[1]))
+            return new_pos, torch.relu(x).amax(dim=2), new_valid
 
 
 class TransitionUp(nn.Module):
@@ -114,20 +121,21 @@ class TransitionUp(nn.Module):
                                      MaskedBatchNorm(out_planes), nn.ReLU())
 
     def forward(self, pos1, feat1, valid1=None, pos2=None, feat2=None, valid2=None):
-        n = feat1.shape[1]
-        mask1 = _mask(valid1, n)
-        if self.head:
-            if valid1 is None:
-                mean = feat1.mean(dim=1, keepdim=True)
-            else:
-                m = counts_to_mask(valid1, n)[..., None].to(feat1.dtype)
-                mean = (feat1 * m).sum(dim=1, keepdim=True) / torch.clamp(
-                    m.sum(dim=1, keepdim=True), min=1.0)
-            g = self.linear2(mean).expand(-1, n, -1)
-            return _run(self.linear1, torch.cat([feat1, g], dim=-1), mask1)
-        a = _run(self.linear1, feat1, mask1)
-        b = _run(self.linear2, feat2, _mask(valid2, feat2.shape[1]))
-        return a + three_interpolate(pos2, pos1, b, valid_src=valid2)
+        with span("pt.up"):
+            n = feat1.shape[1]
+            mask1 = _mask(valid1, n)
+            if self.head:
+                if valid1 is None:
+                    mean = feat1.mean(dim=1, keepdim=True)
+                else:
+                    m = counts_to_mask(valid1, n)[..., None].to(feat1.dtype)
+                    mean = (feat1 * m).sum(dim=1, keepdim=True) / torch.clamp(
+                        m.sum(dim=1, keepdim=True), min=1.0)
+                g = self.linear2(mean).expand(-1, n, -1)
+                return _run(self.linear1, torch.cat([feat1, g], dim=-1), mask1)
+            a = _run(self.linear1, feat1, mask1)
+            b = _run(self.linear2, feat2, _mask(valid2, feat2.shape[1]))
+            return a + three_interpolate(pos2, pos1, b, valid_src=valid2)
 
 
 class PointTransformerBlock(nn.Module):

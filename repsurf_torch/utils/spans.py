@@ -20,11 +20,17 @@ Names are ``<layer>.<stage>``:
   inside its ``scene.crop``; the batches need no upload;
 * ``train.forward``, ``train.backward``, ``train.update`` (both train
   steps; the forward and the update also in the data-parallel steps);
-* ``serve.sample`` and one ``serve.forward`` a vote (``train_cls.eval_step``).
+* ``serve.sample`` and one ``serve.forward`` a vote (``train_cls.eval_step``);
+* ``pt.attention`` (a ``PointTransformerLayer``: its kNN, gathers, both
+  MLPs, softmax and weighted sum), ``pt.down`` (a strided
+  ``TransitionDown``: FPS, kNN grouping, Linear, BN, max-pool) and
+  ``pt.up`` (a ``TransitionUp``), inside ``train.forward`` or a forward of
+  PointTransformer (``nn/pointtransformer.py``).
 
 Counts come from the spans: the number of ``scene.crop`` spans is the
-number of crops.  No model or kernel holds a span: its host time is launch
-time alone.
+number of crops.  Apart from PointTransformer's, no model or kernel holds a
+span: a model span's host time is its launch time, and the time the host
+waits inside it for the card when the launch queue is full.
 """
 
 import contextlib

@@ -9,8 +9,24 @@ Run from the root of a checkout.  Phases, each printing its lines:
   2. build   - compiles repsurf_torch/csrc/*.cu with nvcc, prints the time
                and, from ptxas's report, the registers, stack and spills
                of the kNN, FPS, umbrella (tq at both list lengths, full,
-               the slab's two passes), ball-feature and row-grouping
-               kernels;
+               the slab's two passes), ball-feature, row-grouping,
+               chunk-mean and batch-norm kernels;
+  2b. batch norm - the batch-norm kernels (statistics, normalisation,
+               eval, backward; ReLU fused) at the cells' shapes, PT's
+               [8, 80000, 16, 32] masked and not, its C = 3 and C = 4
+               companions, seg SA1 [8, 20000, 32, 64], the seg umbrella
+               [8, 80000, 8, 10], cls SA1 [64, 512, 32, 64], FP
+               [8, 80000, 128], and edge shapes, element for element equal
+               to the module's torch composition and autograd of it on the
+               card (the statistics to the plain mirrors), each twice,
+               bit-equal; kernel
+               table row 11 at PT's shape (forward and backward against
+               their bytes bound and the bytes they move, the mirrors,
+               the module's torch composition and F.batch_norm + ReLU
+               as the library's yardstick); the batch_norm launches of
+               one training step and one eval forward of the umbrella
+               seg model, PointTransformer and the classifier, equal to
+               the norms each called;
   3. kernels - each CUDA kernel against its plain PyTorch version on the
                card, at the shapes of the classification eval path, with
                kernel and plain times (CUDA events, median of 20 runs), the
@@ -251,7 +267,7 @@ MODELNET_SHAPES = 32  # a [32, 1024] batch from the ModelNet40 fixture
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 FADD_CYCLES, SM_CLOCK_HZ = 4, 1.98e9  # a dependent float32 add; the H100 SXM's boost clock
 KNN_FLOPS = 8  # one squared distance: 3 differences, 3 products, 2 sums
-PTXAS_KERNELS = (  # (label, a substring of the mangled name) for the build's report
+PTXAS_KERNELS = (  # (label, a substring or substrings of the mangled name) for the build's report
     ("knn_kernel<32>", "knn_kernelILi32EE"),
     ("knn_split_kernel<32,32>", "knn_split_kernelILi32ELi32EE"),
     ("knn_split_kernel<32,16>", "knn_split_kernelILi32ELi16EE"),
@@ -270,8 +286,29 @@ PTXAS_KERNELS = (  # (label, a substring of the mangled name) for the build's re
     ("ball_group_kernel_wide", "22ball_group_kernel_wideE"),
     ("chunk_mean_kernel<float>", "chunk_mean_kernelIfE"),
     ("chunk_mean_kernel<double>", "chunk_mean_kernelIdE"),
+    ("bn_sum_kernel<float,4,MeanOp>", ("bn_sum_kernelIfLi4E", "6MeanOpIfE")),
+    ("bn_sum_kernel<float,1,VarOp>", ("bn_sum_kernelIfLi1E", "5VarOpIfE")),
+    ("bn_sum_kernel<float,4,GradOp>", ("bn_sum_kernelIfLi4E", "6GradOpIfE")),
+    ("bn_normalize_kernel<float,4>", "bn_normalize_kernelIfLi4EE"),
+    ("bn_backward_dx_kernel<float,4>", "bn_backward_dx_kernelIfLi4EE"),
 )
 FPS_FLOPS = 9  # a distance and the running minimum
+BN_SRC = "repsurf_torch/csrc/batch_norm.cu"
+BN_SHAPES = (  # (label, x, its mask or None, ReLU): the cells' batch norms, then edge shapes
+    ("PT attention", (8, 80000, 16, 32), (8, 80000, 1), True),
+    ("PT attention, unmasked", (8, 80000, 16, 32), None, True),
+    ("PT linear_p", (8, 80000, 16, 3), (8, 80000, 1), True),
+    ("PT linear_w.3 at stage 1", (8, 80000, 16, 4), (8, 80000, 1), True),
+    ("seg SA1", (8, 20000, 32, 64), (8, 20000, 1), True),
+    ("seg umbrella", (8, 80000, 8, 10), (8, 80000, 1), True),
+    ("cls SA1", (64, 512, 32, 64), None, True),
+    ("FP", (8, 80000, 128), (8, 80000, 1), False),
+    ("PT stage 5", (8, 312, 16, 512), (8, 312, 1), True),
+    ("cls head", (64, 256), None, True),
+    ("odd C", (2, 3000, 13), (2, 3000, 1), True),
+    ("few rows", (2, 37, 6), (2, 37, 1), True),
+)
+BN_FLOPS = 6  # an element: the statistics' three and the normalisation's three
 
 
 def phase_card():
@@ -312,7 +349,8 @@ def phase_build():
     found = build.resources(report.read_text())
     parts = []
     for label, key in PTXAS_KERNELS:
-        hits = [v for name, v in found.items() if key in name]
+        subs = key if isinstance(key, tuple) else (key,)
+        hits = [v for name, v in found.items() if all(k in name for k in subs)]
         if len(hits) != 1:
             raise AssertionError(f"ptxas report: {len(hits)} kernels match {key}")
         regs, stack, st, ld = hits[0]
@@ -828,6 +866,7 @@ def plain_kernels():
     import repsurf_torch.nn.pointtransformer as pointtransformer
     import repsurf_torch.nn.triangular as triangular
     import repsurf_torch.ops.interpolate as interpolate
+    from repsurf_torch.nn.layers import MaskedBatchNorm
     import repsurf_torch.ops.neighbors as neighbors
     import repsurf_torch.ops.sampling as sampling
     from repsurf_torch.ops.kernels.ball_group import ball_group_feature_plain
@@ -843,13 +882,18 @@ def plain_kernels():
     def umbrella_plain(xyz, k, impl="auto", **kw):
         return umbrella_fan_features_plain(xyz, k, **kw)
 
+    def norm_composition(self, x, mask=None, relu=False):  # the module's CPU route
+        y = self._composition(x, mask)
+        return torch.relu(y) if relu else y
+
     swaps = [(sampling, "fps", fps_plain), (transforms, "fps", fps_plain),
              (geo_umbrella, "umbrella_features_kernel", umbrella_plain),
              (blocks, "ball_group_feature", ball_group_feature_plain),
              (neighbors, "ball_group", ball_group_plain),
              (geo_umbrella, "knn", knn_plain), (blocks, "knn", knn_plain),
              (interpolate, "knn", knn_plain), (triangular, "knn", knn_plain),
-             (pointtransformer, "knn", knn_plain)]
+             (pointtransformer, "knn", knn_plain),
+             (MaskedBatchNorm, "forward", norm_composition)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
         for mod, name, fn in swaps:
@@ -2905,6 +2949,241 @@ def phase_bench(dev, card_line):
           f"{json.dumps(busy)}")
 
 
+def check_batch_norm(dev, label, shape, mask_shape, relu, seed):
+    """The batch-norm kernels at one shape against the module's torch
+    composition on the card, element for element: the training output, the
+    running buffers, the eval output, and dx, dweight, dbias from autograd
+    (the ReLU applied after the norm, as before the fusion); the statistics
+    against the plain mirror (the composition's operations); each kernel
+    output twice, bit-equal.  Returns the counts of differing elements."""
+    from repsurf_torch.nn.layers import MaskedBatchNorm
+    from repsurf_torch.ops.kernels import batch_norm as bn
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device=dev)
+         * (torch.rand(c, generator=gen, device=dev) * 2 + 0.5)
+         + torch.randn(c, generator=gen, device=dev) * 2)
+    mask = None
+    if mask_shape is not None:
+        n = mask_shape[1]
+        valid = n - torch.randint(0, max(n // 8, 1), (mask_shape[0],), generator=gen, device=dev)
+        mask = (torch.arange(n, device=dev) < valid[:, None])[..., None]
+    m = MaskedBatchNorm(c).to(dev).train()
+    with torch.no_grad():
+        m.weight.copy_(torch.rand(c, generator=gen, device=dev) + 0.5)
+        m.bias.copy_(torch.randn(c, generator=gen, device=dev) * 0.5)
+        m.running_mean.copy_(torch.randn(c, generator=gen, device=dev))
+        m.running_var.copy_(torch.rand(c, generator=gen, device=dev) + 0.5)
+    g = torch.randn(shape, generator=gen, device=dev)
+    w, b = m.weight.detach(), m.bias.detach()
+    groups, s = bn.row_groups(mask, shape[:-1])
+    runs = []
+    for _ in range(2):
+        rm, rv = m.running_mean.clone(), m.running_var.clone()
+        mean, inv, cnt = bn.batch_norm_stats(x, groups, s, rm, rv, 0.1, 1e-5)
+        y = bn.batch_norm_normalize(x, mean, inv, False, 1e-5, w, b, relu)
+        ye = bn.batch_norm_normalize(x, rm, rv, True, 1e-5, w, b, relu)
+        dx, dw, db = bn.batch_norm_backward(g, x, groups, s, mean, inv, False, 1e-5, w, b, cnt,
+                                            relu)
+        runs.append((mean, inv, cnt, rm, rv, y, ye, dx, dw, db))
+    torch.cuda.synchronize()
+    repeat = all(torch.equal(p, q) for p, q in zip(*runs))
+    mean, inv, cnt, rm, rv, y, ye, dx, dw, db = runs.pop(0)
+    del runs
+    prm, prv = m.running_mean.clone(), m.running_var.clone()
+    pm, pinv, pcnt = bn.batch_norm_stats_plain(x, groups, s, prm, prv, 0.1, 1e-5)
+    xr = x.clone().requires_grad_(True)
+    want = m._composition(xr, mask)
+    want = torch.relu(want) if relu else want
+    wdx, wdw, wdb = torch.autograd.grad(want, (xr, m.weight, m.bias), g)
+    want = want.detach()
+    m.eval()
+    with torch.no_grad():
+        we = m._composition(x, mask)
+        we = torch.relu(we) if relu else we
+    diff = {}
+    for name, got, ref in (("mean", mean, pm), ("invstd", inv, pinv), ("cnt", cnt, pcnt),
+                           ("y", y, want), ("running_mean", rm, m.running_mean),
+                           ("running_var", rv, m.running_var), ("eval", ye, we), ("dx", dx, wdx),
+                           ("dweight", dw, wdw), ("dbias", db, wdb)):
+        diff[name] = (int((got != ref).sum()), float((got - ref).abs().max()))
+    print(f"  batch_norm {label} {list(shape)}: {int(cnt.item())} counted rows, relu {relu}; "
+          "differing elements (largest gap) "
+          + ", ".join(f"{k} {n} ({gap:.3g})" for k, (n, gap) in diff.items())
+          + f"; two runs bit-equal {repeat}")
+    del want, wdx, we, xr, x, g, y, ye, dx
+    torch.cuda.empty_cache()
+    return sum(n for n, _ in diff.values()) + (not repeat)
+
+
+def batch_norm_entries(dev, card_line):
+    """Kernel-table row 11 at PT's attention shape, masked, ReLU'd: the
+    forward (statistics + normalisation) and the backward, each against
+    its bytes bound (each input read once, each output written once) and
+    the bytes the kernels move (four passes of x's size forward, six
+    backward), the plain mirrors, the module's torch composition
+    (the route before the kernels) and torch.nn.functional.batch_norm + ReLU,
+    unmasked, as the library's yardstick (timed here only; the port never
+    calls it)."""
+    import torch.nn.functional as F
+
+    from repsurf_torch.nn.layers import MaskedBatchNorm
+    from repsurf_torch.ops.kernels import batch_norm as bn
+
+    label, shape, mask_shape, _ = BN_SHAPES[0]
+    gen = torch.Generator(dev).manual_seed(0)
+    c = shape[-1]
+    x = torch.randn(shape, generator=gen, device=dev) + 1.0
+    g = torch.randn(shape, generator=gen, device=dev)
+    mask = (torch.arange(shape[1], device=dev) < shape[1] - 1000)[None, :, None].expand(
+        mask_shape).contiguous()
+    groups, s = bn.row_groups(mask, shape[:-1])
+    m = MaskedBatchNorm(c).to(dev).train()
+    w, b = m.weight.detach(), m.bias.detach()
+    rm, rv = m.running_mean, m.running_var
+    stats = bn.batch_norm_stats(x, groups, s, rm, rv, 0.1, 1e-5)
+
+    def fwd():
+        mean, inv, _ = bn.batch_norm_stats(x, groups, s, rm, rv, 0.1, 1e-5)
+        return bn.batch_norm_normalize(x, mean, inv, False, 1e-5, w, b, True)
+
+    def bwd():
+        return bn.batch_norm_backward(g, x, groups, s, stats[0], stats[1], False, 1e-5, w, b,
+                                      stats[2], True)
+
+    def fwd_plain():
+        mean, inv, _ = bn.batch_norm_stats_plain(x, groups, s, rm, rv, 0.1, 1e-5)
+        return bn.batch_norm_normalize_plain(x, mean, inv, False, 1e-5, w, b, True)
+
+    def bwd_plain():
+        return bn.batch_norm_backward_plain(g, x, groups, s, stats[0], stats[1], False, 1e-5, w,
+                                            b, stats[2], True)
+
+    x2, g2 = x.view(-1, c), g.view(-1, c)
+    lib_rm, lib_rv = rm.clone(), rv.clone()
+
+    def fwd_library():
+        return torch.relu(F.batch_norm(x2, lib_rm, lib_rv, w, b, True, 0.1, 1e-5))
+
+    xr = x2.detach().requires_grad_(True)
+    wr, br = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
+
+    def step_library():
+        y = torch.relu(F.batch_norm(xr, lib_rm, lib_rv, wr, br, True, 0.1, 1e-5))
+        return torch.autograd.grad(y, (xr, wr, br), g2)
+
+    xc = x.detach().requires_grad_(True)
+    mc = copy.deepcopy(m)
+
+    def step_composition():
+        y = torch.relu(mc._composition(xc, mask))
+        return torch.autograd.grad(y, (xc, mc.weight, mc.bias), g)
+
+    def step_kernels():
+        y = bn.batch_norm(xc, mc.weight, mc.bias, mc.running_mean, mc.running_var, mask, True,
+                          0.1, 1e-5, True)
+        return torch.autograd.grad(y, (xc, mc.weight, mc.bias), g)
+
+    nbytes, mask_bytes = x.numel() * 4, groups.numel()
+    entries = []
+    for name, kernel_fn, plain_fn, passes, least in (
+            ("forward", fwd, fwd_plain, 4, 2), ("backward", bwd, bwd_plain, 6, 3)):
+        e = _entry(f"batch_norm_{name}[{'x'.join(map(str, shape))},masked,relu]", BN_SRC,
+                   "none (XLA fuses the JAX package's MaskedBatchNorm)", 0.0, kernel_fn, plain_fn,
+                   (BN_FLOPS * x.numel(), least * nbytes + mask_bytes))
+        moved = passes * nbytes + 2 * mask_bytes
+        rate = moved / (e["ms"] / 1e3)
+        dev_rate = moved / (e["device_ms"] / 1e3) if e["device_ms"] else float("nan")
+        print(f"    moves {moved / 1e9:.3f} GB ({passes} passes of x): {rate / 1e12:.3f} TB/s = "
+              f"{100 * rate / PEAK_BYTES_PER_S:.1f} % of 3.35 TB/s by events, "
+              f"{100 * dev_rate / PEAK_BYTES_PER_S:.1f} % by device time; roofline share "
+              f"{100 * e['bound_ms'] / e['ms']:.1f} %")
+        e["launches"] = None
+        entries.append(e)
+    lib_fwd, lib_step = median_ms(fwd_library), median_ms(step_library)
+    comp_step, kern_step = median_ms(step_composition), median_ms(step_kernels)
+    comp_dev, kern_dev = device_ms(step_composition), device_ms(step_kernels)
+    entries[0]["library_ms"], entries[1]["library_ms"] = lib_fwd, lib_step - lib_fwd
+    print(f"    library (F.batch_norm + ReLU, unmasked, [{x2.shape[0]}, {c}]): forward "
+          f"{lib_fwd:.4f} ms, forward + backward {lib_step:.4f} ms; the module's forward + "
+          f"backward: kernels {kern_step:.4f} ms (device {kern_dev:.4f}), the torch composition "
+          f"before them {comp_step:.4f} ms (device {comp_dev:.4f}); {card_line}")
+    return entries
+
+
+def bn_step_launches(dev):
+    """The batch_norm launches of one training step and of one eval forward
+    of the umbrella seg model, PointTransformer (2 x 20,000 points) and the
+    classifier (batch 16) against the norms each called."""
+    from repsurf_torch.data.synthetic_scene import synthetic_room
+    from repsurf_torch.nn.layers import MaskedBatchNorm
+    from repsurf_torch.ops.kernels import batch_norm as bn
+    from repsurf_torch.train import train_cls, train_seg
+
+    rng = np.random.RandomState(0)
+    n = 20000
+    coord = torch.from_numpy(np.stack([synthetic_room(n, rng=rng) for _ in range(2)])).to(dev)
+    batch = {"coord": coord, "feat": torch.rand(2, n, 3, device=dev),
+             "label": torch.randint(0, 13, (2, n), device=dev),
+             "valid": torch.tensor([n, n - 3000], device=dev)}
+    cls_pts = torch.rand(16, 2048, 3, device=dev) * 2 - 1
+    cls_target = torch.randint(0, 15, (16,), device=dev)
+    out = {}
+    for name in ("repsurf.repsurf_umb_ssg", PT, "repsurf.repsurf_ssg_umb"):
+        seg = name != "repsurf.repsurf_ssg_umb"
+        cfg = train_seg.SegConfig(model=name) if seg else train_cls.ClsConfig()
+        trainer = train_seg if seg else train_cls
+        model = trainer.build_model(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+        opt = trainer.make_optimizer(model, cfg)
+        calls = [0]
+        for mod in model.modules():
+            if isinstance(mod, MaskedBatchNorm):
+                mod.register_forward_hook(lambda *a: calls.__setitem__(0, calls[0] + 1))
+        gen = torch.Generator(dev).manual_seed(1)
+        for k in bn.batch_norm.launches:
+            bn.batch_norm.launches[k] = 0
+        if seg:
+            trainer.train_step(model, opt, batch, torch.ones(13, device=dev), cfg, generator=gen)
+        else:
+            trainer.train_step(model, opt, cls_pts, cls_target, cfg, generator=gen)
+        torch.cuda.synchronize()
+        train = (calls[0], dict(bn.batch_norm.launches))
+        calls[0] = 0
+        for k in bn.batch_norm.launches:
+            bn.batch_norm.launches[k] = 0
+        model.eval()
+        with torch.no_grad():
+            if seg:
+                model(batch["coord"], batch["feat"], batch["valid"])
+            else:
+                model(cls_pts[:, :1024])
+        torch.cuda.synchronize()
+        out[name] = (train, (calls[0], dict(bn.batch_norm.launches)))
+        (tc, tl), (ec, el) = out[name]
+        print(f"  batch_norm launches, {name}: a training step's {tc} norms -> {tl}; an eval "
+              f"forward's {ec} -> {el}")
+        if tl != {"stats": tc, "normalize": tc, "backward": tc, "eval": 0} or el != {
+                "stats": 0, "normalize": 0, "backward": 0, "eval": ec} or not tc * ec:
+            raise AssertionError(f"{name}: a norm ran off the batch_norm kernels")
+    return out
+
+
+def phase_batch_norm(dev, card_line):
+    """The batch-norm kernels at the cells' shapes against their mirrors,
+    kernel-table row 11, and the launches of one step of each model."""
+    print("batch norm:")
+    off = sum(check_batch_norm(dev, label, shape, mask_shape, relu, seed=i)
+              for i, (label, shape, mask_shape, relu) in enumerate(BN_SHAPES))
+    if off:
+        raise AssertionError(f"batch_norm: {off} elements off the torch composition or unrepeated")
+    entries = batch_norm_entries(dev, card_line)
+    torch.cuda.empty_cache()
+    launches = bn_step_launches(dev)
+    torch.cuda.empty_cache()
+    return entries, launches
+
+
 def main():
     profile = "--profile" in sys.argv[1:]
     seconds = {}
@@ -2913,6 +3192,9 @@ def main():
     dev = torch.device("cuda", 0)
     phase_build()
     seconds["card+build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bn_entries, _ = phase_batch_norm(dev, card_line)
+    seconds["batch norm"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     entries, stages = phase_kernels(dev)
     seconds["kernels"] = time.perf_counter() - t0
@@ -2988,7 +3270,7 @@ def main():
           f"{2 * PAD_KERNELS * PROFILER['traces']} spin kernels not recorded")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     kernels = (entries + umb_entries + train_entries + seg_entries + family_entries
-               + scannet_entries + [chunk_entry])
+               + scannet_entries + [chunk_entry] + bn_entries)
     print(json.dumps({"kernels": not_measured_as_null(kernels)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

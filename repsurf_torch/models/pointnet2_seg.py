@@ -9,7 +9,7 @@ import torch
 from torch import nn
 
 from ..nn.blocks import PointNetFeaturePropagation, PointNetSetAbstraction
-from ..nn.layers import Dropout, Linear, MaskedBatchNorm
+from ..nn.layers import Dropout, Linear, MaskedBatchNorm, run_layers
 from ..ops.masking import counts_to_mask
 from .repsurf_seg import HEAD_HIDDEN
 
@@ -62,14 +62,7 @@ class PointNet2Segmentor(nn.Module):
             x = getattr(self, f"fp{j}")(xyzs[j - 1], feats[j - 1] if j > 1 else None, xyzs[j], x,
                                         valid1=valids[j - 1], valid2=valids[j])
         mask = None if valid is None else counts_to_mask(valid, pos.shape[1])[..., None]
-        for layer in self.classifier:
-            if isinstance(layer, MaskedBatchNorm):
-                x = layer(x, mask=mask)
-            elif isinstance(layer, Dropout):
-                x = layer(x, generator=generator)
-            else:
-                x = layer(x)
-        return x
+        return run_layers(self.classifier, x, mask, generator)
 
 
 def pointnet2_ssg(num_class=13, **kw):

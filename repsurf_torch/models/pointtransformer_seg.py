@@ -11,7 +11,7 @@ block, ``cls`` the head.
 import torch
 from torch import nn
 
-from ..nn.layers import Linear, MaskedBatchNorm
+from ..nn.layers import Linear, MaskedBatchNorm, run_layers
 from ..nn.pointtransformer import PointTransformerBlock, TransitionDown, TransitionUp
 from ..ops.masking import counts_to_mask
 
@@ -62,9 +62,7 @@ class PointTransformerSegmentor(nn.Module):
             _, x, _ = block(p, x, valid=v)
             coarse = (p, x, v)
         mask = None if valid is None else counts_to_mask(valid, pos.shape[1])[..., None]
-        for layer in self.cls:
-            x = layer(x, mask=mask) if isinstance(layer, MaskedBatchNorm) else layer(x)
-        return x
+        return run_layers(self.cls, x, mask)
 
 
 def pointtransformer(num_class=13, **kw):

@@ -10,7 +10,7 @@ import torch
 from torch import nn
 
 from ..nn.blocks import SurfaceAbstractionCD, UmbrellaSurfaceConstructor
-from ..nn.layers import Dropout, Linear, MaskedBatchNorm
+from ..nn.layers import Dropout, Linear, MaskedBatchNorm, run_layers
 from ..nn.triangular import SurfaceConstructor
 
 REPSURF_CHANNEL = 10
@@ -81,9 +81,7 @@ class RepSurfClassifier(nn.Module):
         feature = None
         for i in range(1, self.n_sa + 1):
             center, normal, feature, _ = getattr(self, f"sa{i}")(center, normal, feature)
-        x = feature.reshape(feature.shape[0], -1)
-        for layer in self.classfier:
-            x = layer(x, generator=generator) if isinstance(layer, Dropout) else layer(x)
+        x = run_layers(self.classfier, feature.reshape(feature.shape[0], -1), generator=generator)
         return torch.log_softmax(x, dim=-1)
 
 

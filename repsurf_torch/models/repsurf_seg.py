@@ -17,7 +17,7 @@ from ..nn.blocks import (
     SurfaceFeaturePropagationCD,
     UmbrellaSurfaceConstructor,
 )
-from ..nn.layers import Dropout, Linear, MaskedBatchNorm
+from ..nn.layers import Dropout, Linear, MaskedBatchNorm, run_layers
 from ..ops.masking import counts_to_mask
 
 REPSURF_CHANNEL = 10
@@ -90,14 +90,7 @@ class RepSurfSegmentor(nn.Module):
                 valid1=valids[j - 1], valid2=valids[j],
             )
         mask = None if valid is None else counts_to_mask(valid, pos.shape[1])[..., None]
-        for layer in self.classifier:
-            if isinstance(layer, MaskedBatchNorm):
-                x = layer(x, mask=mask)
-            elif isinstance(layer, Dropout):
-                x = layer(x, generator=generator)
-            else:
-                x = layer(x)
-        return x
+        return run_layers(self.classifier, x, mask, generator)
 
 
 def repsurf_umb_ssg(num_class=13, **kw):

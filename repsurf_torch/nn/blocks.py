@@ -21,7 +21,7 @@ from ..ops.masking import counts_to_mask
 from ..ops.neighbors import knn
 from ..ops.sampling import farthest_point_sample
 from ..ops.sector import sectorized_fps
-from .layers import Linear, MaskedBatchNorm
+from .layers import Linear, MaskedBatchNorm, run_layers
 
 
 def _mask(valid, n):
@@ -47,7 +47,8 @@ def sample(center, npoint, stride, valid, num_sector, train):
 
 
 class SharedMLP(nn.Module):
-    """Linear + BN + ReLU stack (``mlp_convs.j`` / ``mlp_bns.j``)."""
+    """Linear + BN + ReLU stack (``mlp_convs.j`` / ``mlp_bns.j``), the ReLU
+    fused into the norm."""
 
     def __init__(self, in_channel, features, generator=None):
         super().__init__()
@@ -60,7 +61,7 @@ class SharedMLP(nn.Module):
 
     def forward(self, x, mask=None):
         for conv, bn in zip(self.mlp_convs, self.mlp_bns):
-            x = torch.relu(bn(conv(x), mask=mask))
+            x = bn(conv(x), mask=mask, relu=True)
         return x
 
 
@@ -107,10 +108,7 @@ class UmbrellaSurfaceConstructor(nn.Module):
         [B] +-1 per-sample normal inversion."""
         feat = umbrella_features(center, self.k, valid=valid, random_inv_sign=inv_sign,
                                  style=self.style, return_dist=self.return_dist)
-        mask = _mask(valid, center.shape[1])
-        x = feat
-        for layer in self.mlps:
-            x = layer(x, mask=mask) if isinstance(layer, MaskedBatchNorm) else layer(x)
+        x = run_layers(self.mlps, feat, _mask(valid, center.shape[1]))
         if self.aggr_type == "max":
             return x.amax(dim=2)
         return x.mean(dim=2) if self.aggr_type == "avg" else x.sum(dim=2)

@@ -1,9 +1,21 @@
-"""Linear layers with torch-default init, and batch norm with masked
-statistics (repsurf_tpu/nn/layers.py).
+"""Linear layers with torch-default init, batch norm with masked
+statistics and the ReLU fused after it (repsurf_tpu/nn/layers.py), and the
+runner of the models' layer stacks.
 
 Both work on the trailing channel axis of channels-last tensors, the
 reference's 1x1 convolutions.  Parameters are drawn from an explicit
 ``torch.Generator`` when one is given.
+
+``MaskedBatchNorm`` has two routes.  On a CUDA tensor (outside a process
+group in training) it is the hand-written kernels of
+``ops/kernels/batch_norm.py``: the masked statistics, the normalisation and
+the ReLU, forward and backward, launched with no host copy, and equal bit
+for bit to the other route on the same card.  On the CPU, and for
+statistics shared over a process group, it is the torch composition of the
+JAX package's two-pass form.  ``forward(x, mask, relu=True)`` applies the
+ReLU that follows the norm; ``run_layers`` passes it wherever an
+``nn.ReLU`` follows a norm in a stack, so the stacks' modules and
+state-dict keys stay the reference's.
 """
 
 import math
@@ -11,6 +23,7 @@ import math
 import torch
 from torch import nn
 
+from ..ops.kernels.batch_norm import batch_norm
 from ..parallel.distributed import all_reduce_sum
 
 
@@ -33,14 +46,19 @@ class Linear(nn.Linear):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over every non-channel axis, with optional row masking.
+    """BatchNorm over every non-channel axis, with optional row masking and
+    the ReLU after it.
 
     torch BatchNorm semantics: biased variance to normalize, unbiased for
     the running estimate, momentum 0.1, eps 1e-5.  In eval mode the running
-    statistics are used.  Training statistics use the two-pass masked form
-    (mean first, then the centered second moment) of the JAX package.
-    Parameters are named as torch's (weight, bias, running_mean,
-    running_var).
+    statistics are used.  Training statistics are those of the two-pass
+    masked form (mean first, then the centered second moment) of the JAX
+    package; an unmasked call counts every row.  Parameters are named as
+    torch's (weight, bias, running_mean, running_var).
+
+    On a CUDA tensor the kernels compute it (``ops.kernels.batch_norm``),
+    bit for bit the torch composition below and autograd's backward of it;
+    on the CPU, and with a ``process_group`` in training, that composition.
 
     With a ``process_group`` (the JAX module's ``axis_name``), training
     statistics span the group's ranks: the masked count and sum are
@@ -59,31 +77,36 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, relu=False):
         """x: [..., C]; mask: optional bool, broadcastable to x.shape[:-1],
-        True rows count in the statistics."""
+        True rows count in the statistics; relu: apply the ReLU that
+        follows the norm."""
+        if x.is_cuda and (self.process_group is None or not self.training):
+            return batch_norm(x, self.weight, self.bias, self.running_mean, self.running_var,
+                              mask, self.training, self.momentum, self.eps, relu)
+        y = self._composition(x, mask)
+        return torch.relu(y) if relu else y
+
+    def _composition(self, x, mask):
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
             axes = tuple(range(x.ndim - 1))
             group = self.process_group
-            if mask is None:
-                w = None
-                cnt = torch.tensor(float(math.prod(x.shape[:-1])), device=x.device)
-                s = x.sum(dim=axes)
+            if mask is None:  # every row counts; the count filled on x's device, no copy
+                w, cnt = 1.0, x.new_full((), float(math.prod(x.shape[:-1])))
             else:
                 if mask.ndim == x.ndim and mask.shape[-1] == 1:
                     mask = mask[..., 0]
                 w = torch.broadcast_to(mask, x.shape[:-1]).to(x.dtype)[..., None]
                 cnt = w.sum()
-                s = (x * w).sum(dim=axes)
+            s = (x * w).sum(dim=axes)
             if group is not None:
                 cnt = all_reduce_sum(cnt, group)
                 s = all_reduce_sum(s, group)
             cnt = torch.clamp(cnt, min=1.0)
             mean = s / cnt
-            sq = torch.square(x - mean)
-            cs = (sq if w is None else sq * w).sum(dim=axes)
+            cs = (torch.square(x - mean) * w).sum(dim=axes)
             if group is not None:
                 cs = all_reduce_sum(cs, group)
             var = torch.clamp(cs / cnt, min=0.0)
@@ -93,6 +116,26 @@ class MaskedBatchNorm(nn.Module):
                 self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
         inv = torch.rsqrt(var + self.eps)
         return (x - mean) * (inv * self.weight) + self.bias
+
+
+def run_layers(layers, x, mask=None, generator=None):
+    """Run a stack of layers in order: a ``MaskedBatchNorm`` takes ``mask``
+    and, where an ``nn.ReLU`` follows it, applies that ReLU itself (the
+    ReLU module is then skipped); a ``Dropout`` takes ``generator``."""
+    norm = None  # a norm waiting to see whether a ReLU follows
+    for layer in layers:
+        if norm is not None:
+            fused = isinstance(layer, nn.ReLU)
+            x, norm = norm(x, mask=mask, relu=fused), None
+            if fused:
+                continue
+        if isinstance(layer, MaskedBatchNorm):
+            norm = layer
+        elif isinstance(layer, Dropout):
+            x = layer(x, generator=generator)
+        else:
+            x = layer(x)
+    return x if norm is None else norm(x, mask=mask)
 
 
 class Dropout(nn.Module):

@@ -23,14 +23,7 @@ from ..ops.masking import counts_to_mask
 from ..ops.neighbors import knn
 from ..utils.spans import span
 from .blocks import _mask, sample
-from .layers import Linear, MaskedBatchNorm
-
-
-def _run(seq, x, mask):
-    """An ``nn.Sequential`` whose MaskedBatchNorms take ``mask``."""
-    for layer in seq:
-        x = layer(x, mask=mask) if isinstance(layer, MaskedBatchNorm) else layer(x)
-    return x
+from .layers import Linear, MaskedBatchNorm, run_layers
 
 
 class PointTransformerLayer(nn.Module):
@@ -62,9 +55,9 @@ class PointTransformerLayer(nn.Module):
             x_q, x_k, x_v = self.linear_q(feat), self.linear_k(feat), self.linear_v(feat)
             idx, _ = knn(self.nsample, pos, pos, valid=valid)
             mask = _mask(valid, n)  # [B, N, 1], broadcast over the neighbours
-            pe = _run(self.linear_p, index_points(pos, idx) - pos[:, :, None], mask)
+            pe = run_layers(self.linear_p, index_points(pos, idx) - pos[:, :, None], mask)
             w = index_points(x_k, idx) - x_q[:, :, None] + pe
-            w = torch.softmax(_run(self.linear_w, w, mask), dim=2)
+            w = torch.softmax(run_layers(self.linear_w, w, mask), dim=2)
             s = self.share_planes
             v = (index_points(x_v, idx) + pe).reshape(b, n, self.nsample, s,
                                                       self.out_planes // s)
@@ -88,16 +81,16 @@ class TransitionDown(nn.Module):
     def forward(self, pos, feat, valid=None):
         """-> (new_pos, new_feat, new_valid)."""
         if self.stride == 1:
-            x = self.bn(self.linear(feat), mask=_mask(valid, pos.shape[1]))
-            return pos, torch.relu(x), valid
+            x = self.bn(self.linear(feat), mask=_mask(valid, pos.shape[1]), relu=True)
+            return pos, x, valid
         with span("pt.down"):
             idx, new_valid = sample(pos, None, self.stride, valid, self.num_sector, self.training)
             new_pos = index_points(pos, idx)
             gidx, _ = knn(self.nsample, pos, new_pos, valid=valid)
             x = torch.cat([index_points(pos, gidx) - new_pos[:, :, None],
                            index_points(feat, gidx)], dim=-1)
-            x = self.bn(self.linear(x), mask=_mask(new_valid, new_pos.shape[1]))
-            return new_pos, torch.relu(x).amax(dim=2), new_valid
+            x = self.bn(self.linear(x), mask=_mask(new_valid, new_pos.shape[1]), relu=True)
+            return new_pos, x.amax(dim=2), new_valid
 
 
 class TransitionUp(nn.Module):
@@ -132,9 +125,9 @@ class TransitionUp(nn.Module):
                     mean = (feat1 * m).sum(dim=1, keepdim=True) / torch.clamp(
                         m.sum(dim=1, keepdim=True), min=1.0)
                 g = self.linear2(mean).expand(-1, n, -1)
-                return _run(self.linear1, torch.cat([feat1, g], dim=-1), mask1)
-            a = _run(self.linear1, feat1, mask1)
-            b = _run(self.linear2, feat2, _mask(valid2, feat2.shape[1]))
+                return run_layers(self.linear1, torch.cat([feat1, g], dim=-1), mask1)
+            a = run_layers(self.linear1, feat1, mask1)
+            b = run_layers(self.linear2, feat2, _mask(valid2, feat2.shape[1]))
             return a + three_interpolate(pos2, pos1, b, valid_src=valid2)
 
 
@@ -156,7 +149,7 @@ class PointTransformerBlock(nn.Module):
     def forward(self, pos, feat, valid=None):
         """-> (pos, new_feat, valid)."""
         mask = _mask(valid, pos.shape[1])
-        x = torch.relu(self.bn1(self.linear1(feat), mask=mask))
-        x = torch.relu(self.bn2(self.transformer2(pos, x, valid=valid), mask=mask))
+        x = self.bn1(self.linear1(feat), mask=mask, relu=True)
+        x = self.bn2(self.transformer2(pos, x, valid=valid), mask=mask, relu=True)
         x = self.bn3(self.linear3(x), mask=mask)
         return pos, torch.relu(x + feat), valid

@@ -3,11 +3,14 @@ version.
 
 Every wrapper (``fps.fps``, ``umbrella.umbrella_features_kernel``,
 ``ball_group.ball_group_feature``, ``ball_group.ball_group_channels``,
-``knn.knn_brute``, ``knn_window.knn_window``, ``chunk_mean.chunk_mean``) runs the plain version for a
-tensor on the CPU and launches its kernel for a tensor on a CUDA device,
-counting launches in its ``launches`` attributes.  The umbrella and ball
-wrappers are ``torch.autograd.Function``s on a CUDA device; the ball
-groupings' backward is a kernel too (``ball_group.ball_scatter``).  The
+``knn.knn_brute``, ``knn_window.knn_window``, ``chunk_mean.chunk_mean``,
+``batch_norm.batch_norm_stats`` / ``batch_norm_normalize`` /
+``batch_norm_backward``) runs the plain version for a tensor on the CPU and
+launches its kernel for a tensor on a CUDA device, counting launches in its
+``launches`` attributes.  The umbrella and ball wrappers and
+``batch_norm.batch_norm`` are ``torch.autograd.Function``s on a CUDA
+device; the ball groupings' and the batch norm's backwards are kernels too
+(``ball_group.ball_scatter``, ``batch_norm.batch_norm_backward``).  The
 sources are in ``repsurf_torch/csrc`` and are built at first use
 (``build.py``).
 """
@@ -19,8 +22,10 @@ def kernel_launches():
     brute kNN by route, both kNN kernels by k, FPS and both kNN kernels by
     shape ("BxN->M", kNN with ",k=K"), the ball-feature kernel and its
     backward by channel count, the umbrella kernel by impl, the chunk
-    mean."""
+    mean, the batch norm by route (a call each: 'stats', 'normalize',
+    'backward', 'eval')."""
     from .ball_group import ball_group_feature
+    from .batch_norm import batch_norm
     from .chunk_mean import chunk_mean
     from .fps import fps
     from .knn import knn_brute
@@ -38,4 +43,4 @@ def kernel_launches():
             "ball_feature_by_c": dict(ball_group_feature.launches_by_channels),
             "ball_feature_bwd_by_c": dict(ball_group_feature.backward_launches_by_channels),
             "umbrella": dict(umbrella_features_kernel.launches),
-            "chunk_mean": chunk_mean.launches}
+            "chunk_mean": chunk_mean.launches, "batch_norm": dict(batch_norm.launches)}

@@ -35,6 +35,8 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_D = ctypes.c_double
 # name -> (restype, argtypes); every pointer and the stream are c_void_p
 _SIGNATURES = {
     "repsurf_fps": (_I, [_P, _P, _I, _I, _I, _P, _P, _P, _P]),
@@ -81,6 +83,16 @@ _SIGNATURES = {
     ),
     "repsurf_knn_window_max_k": (_I, []),
     "repsurf_chunk_mean": (_I, [_P, _P, _I, _I, _I, _I, _P, _P]),
+    "repsurf_bn_scratch_bytes": (_L, [_L, _I, _I, _I, _I]),
+    "repsurf_bn_stats": (
+        _I,
+        [_P, _P, _L, _I, _L, _L, _I, _D, _D, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    ),
+    "repsurf_bn_normalize": (_I, [_P, _L, _I, _I, _P, _P, _I, _D, _P, _P, _I, _P, _P]),
+    "repsurf_bn_backward": (
+        _I,
+        [_P, _P, _P, _L, _I, _L, _I, _P, _P, _I, _D, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P],
+    ),
 }
 
 

@@ -166,20 +166,15 @@ Run from the root of a checkout.  Phases, each printing its lines:
                one epoch with votes, and test_s3dis serving a room of R2's
                size from a reference-format .pth and from the port's
                checkpoint of the same weights (the labels must be equal);
-  12. bench   - python -m repsurf_torch.bench at its defaults: three JSON
-               lines (seg train, whole-scene inference, cls eval), each
-               value finite and above 0, each on this card and power limit,
-               the inference child loading the built kernels, FPS, window,
-               brute, tq and ball-feature launches counted; the op tables
-               of profile_seg --steps 3 --top 25 --fwd --scene 220000
-               (train step, eval forward, predict_scene on the inference
-               bench's first room) and profile_cls --ops, each CLI in its
-               own process, each table from a whole trace and naming the
-               path's kernels with device time above 0; knn_window_stats,
-               its re-solved queries per sample held to RESOLVE_LIMIT; a
-               ModelNet40Dataset batch of [32, 1024] from a txt fixture
-               through fps_sample and repsurf_ssg_umb with 40 classes,
-               finite;
+  12. tools   - the op tables of profile_seg --steps 3 --top 25 --fwd
+               --scene 220000 (train step, eval forward, predict_scene on
+               a room of 220,000 raw points) and profile_cls --ops, each
+               CLI in its own process, each table from a whole trace and
+               naming the path's kernels with device time above 0;
+               knn_window_stats, its re-solved queries per sample held to
+               RESOLVE_LIMIT; a ModelNet40Dataset batch of [32, 1024] from
+               a txt fixture through fps_sample and repsurf_ssg_umb with
+               40 classes, finite;
   13. a JSON line of the kernels, then {"ok": true, "device": {...}}.
       A device time that torch.profiler did not record whole in
       PROFILE_TRIES traces is null there; the SA1 re-solve check then
@@ -255,12 +250,9 @@ R1_POINTS, R2_POINTS = 120000, 12000
 SCANNET_SCENES, SCANNET_RAW = 4, 300000  # phase 11b: two train and two val scenes
 SEG_PARAMS_SCANNET = 977989  # repsurf_umb_ssg with ScanNet's 21 classes
 VOTE_TIE = 1e-6  # top-two vote-averaged probability gap, device against host mode
-BENCH_METRICS = ("s3dis_train_scenes_per_sec_per_chip", "s3dis_infer_scenes_per_sec_per_chip",
-                 "scanobjectnn_eval_clouds_per_sec_per_chip")  # repsurf_torch.bench, in order
-BENCH_TIMEOUT = 900
-BENCH_KERNELS = ("fps", "knn_window", "knn_brute", "umbrella_tq", "ball_feature")
+PROFILER_TIMEOUT = 900  # seconds of a profiling CLI's process
 SEG_TABLE_KERNELS = ("fps_kernel", "knn_window_kernel", ("knn_split_kernel", "knn_kernel"))
-BENCH_SCENE_RAW = 220000  # raw points of the whole-scene op table's room (the infer bench's)
+SCENE_TABLE_RAW = 220000  # raw points of the whole-scene op table's room
 CLS_TABLE_KERNELS = ("fps_kernel", "umbrella_tq_kernel", "ball_feature_kernel")
 MODELNET_SHAPES = 32  # a [32, 1024] batch from the ModelNet40 fixture
 # H100 SXM data sheet: float32 outside the tensor cores, HBM3
@@ -1788,8 +1780,8 @@ def profile_train_step(step):
 
 
 def phase_seg_slice(dev, profile=False):
-    from repsurf_torch.data.s3dis import CLASS_WEIGHTS, pad_batch
-    from repsurf_torch.data.synthetic_scene import synthetic_room
+    from repsurf_torch.cli.common import seg_batch
+    from repsurf_torch.data.s3dis import CLASS_WEIGHTS
     from repsurf_torch.ops.kernels.fps import fps
     from repsurf_torch.ops.kernels.knn import knn_brute
     from repsurf_torch.ops.kernels.knn_window import knn_window
@@ -1808,10 +1800,7 @@ def phase_seg_slice(dev, profile=False):
     if abs(n_params / 1e6 - 0.976) >= 0.01:
         raise AssertionError(f"repsurf_umb_ssg has {n_params} parameters, not 0.976 M")
     opt = make_optimizer(model, cfg)
-    rng = np.random.RandomState(0)  # bench.py's batch
-    samples = [(synthetic_room(n, rng=rng), rng.rand(n, 3).astype(np.float32),
-                rng.randint(0, 13, n).astype(np.int64)) for _ in range(b)]
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in pad_batch(samples, n).items()}
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in seg_batch(n, b).items()}
     w = torch.tensor(CLASS_WEIGHTS[5], dtype=torch.float32, device=dev)
     gen = torch.Generator(dev).manual_seed(1)
 
@@ -2434,8 +2423,8 @@ def seg_in_process(dev, name, n_params_want):
     80,000-point rooms): FAMILY_STEPS timed train steps, peak memory, one
     eval forward's logits on the kernel path against the plain path on the
     live points."""
-    from repsurf_torch.data.s3dis import CLASS_WEIGHTS, pad_batch
-    from repsurf_torch.data.synthetic_scene import synthetic_room
+    from repsurf_torch.cli.common import seg_batch
+    from repsurf_torch.data.s3dis import CLASS_WEIGHTS
     from repsurf_torch.train.train_seg import SegConfig, build_model, make_optimizer, train_step
 
     n, b = SEG_POINTS, SEG_BATCH
@@ -2445,10 +2434,7 @@ def seg_in_process(dev, name, n_params_want):
     if n_params != n_params_want:
         raise AssertionError(f"{name} has {n_params} parameters, not {n_params_want}")
     opt = make_optimizer(model, cfg)
-    rng = np.random.RandomState(0)  # bench.py's batch
-    samples = [(synthetic_room(n, rng=rng), rng.rand(n, 3).astype(np.float32),
-                rng.randint(0, 13, n).astype(np.int64)) for _ in range(b)]
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in pad_batch(samples, n).items()}
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in seg_batch(n, b).items()}
     w = torch.tensor(CLASS_WEIGHTS[5], dtype=torch.float32, device=dev)
     gen = torch.Generator(dev).manual_seed(1)
     torch.cuda.reset_peak_memory_stats()
@@ -2828,47 +2814,12 @@ def table_kernels(tables, prefix, patterns):
 def profiler_cli(here, args):
     """Run ``python -m <args>`` and return its printed tables."""
     proc = subprocess.run([sys.executable, "-m", *args], cwd=here, capture_output=True,
-                          text=True, timeout=BENCH_TIMEOUT)
+                          text=True, timeout=PROFILER_TIMEOUT)
     if proc.returncode:
         raise AssertionError(f"{' '.join(args)} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
     for line in proc.stdout.splitlines():
         print(f"  {line}")
     return printed_tables(proc.stdout)
-
-
-def bench_lines(here, card_line):
-    """python -m repsurf_torch.bench at its defaults: three lines with the
-    three names in order, each value finite and above 0, on this card, the
-    path's kernels launched; returns the lines."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repsurf_torch.bench"], cwd=here,
-                          capture_output=True, text=True, timeout=BENCH_TIMEOUT)
-    secs = time.perf_counter() - t0
-    if proc.returncode:
-        raise AssertionError(f"repsurf_torch.bench exited {proc.returncode}:\n"
-                             f"{proc.stderr[-3000:]}")
-    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
-    for line in lines:
-        print(f"  {json.dumps(line)}")
-    name, limit = (s.strip() for s in card_line.rsplit(",", 1))
-    if [ln["metric"] for ln in lines] != list(BENCH_METRICS):
-        raise AssertionError(f"bench printed {[ln.get('metric') for ln in lines]}")
-    for line in lines:
-        value = line["value"]
-        if value is None or not math.isfinite(value) or value <= 0:
-            raise AssertionError(f"{line['metric']}: value {value}")
-        if (line["device"], line["power_limit"]) != (name, limit):
-            raise AssertionError(f"{line['metric']}: on {line['device']}, {line['power_limit']}")
-    infer = lines[1]
-    if infer["status"] != "ok" or infer["kernel_build_s"] != 0.0:
-        raise AssertionError(f"bench_infer: status {infer['status']}, the child built the "
-                             f"kernels for {infer['kernel_build_s']} s instead of loading them")
-    launches = {k: sum(ln["launches"][k] for ln in lines) for k in BENCH_KERNELS}
-    print(f"  bench: {secs:.1f} s; kernel launches over the three metrics {launches}; the "
-          f"infer child loaded the built kernels ({infer['kernel_build_s']} s of build)")
-    if min(launches.values()) == 0:
-        raise AssertionError("a kernel of the bench's paths was not launched")
-    return lines
 
 
 def modelnet_fixture(root):
@@ -2920,15 +2871,14 @@ def check_modelnet(dev):
         raise AssertionError("ModelNet40 batch: wrong shape, not finite or off the kernels")
 
 
-def phase_bench(dev, card_line):
-    """The bench; the profilers' op tables, each from its own process as a
-    user runs it; the window guard diagnostics; ModelNet40."""
+def phase_tools(dev):
+    """The profilers' op tables, each from its own process as a user runs
+    it; the window guard diagnostics; ModelNet40."""
     from repsurf_torch.cli import knn_window_stats
 
     here = Path(__file__).resolve().parent
-    lines = bench_lines(here, card_line)
     seg = profiler_cli(here, ["repsurf_torch.cli.profile_seg", "--steps", "3", "--top", "25",
-                              "--fwd", "--scene", str(BENCH_SCENE_RAW)])
+                              "--fwd", "--scene", str(SCENE_TABLE_RAW)])
     cls = profiler_cli(here, ["repsurf_torch.cli.profile_cls", "--ops"])
     found, busy = {}, {}
     for label, tables, prefix, patterns in (
@@ -2944,9 +2894,7 @@ def phase_bench(dev, card_line):
             raise AssertionError(f"knn_window_stats {label}: {resolved} re-solved "
                                  f"(limit {RESOLVE_LIMIT})")
     check_modelnet(dev)
-    values = ", ".join(f"{line['metric']} {line['value']}" for line in lines)
-    print(f"bench: {values}; device busy ms, host wall ms and idle share a call "
-          f"{json.dumps(busy)}")
+    print(f"tools: device busy ms, host wall ms and idle share a call {json.dumps(busy)}")
 
 
 def check_batch_norm(dev, label, shape, mask_shape, relu, seed):
@@ -3245,8 +3193,8 @@ def main():
     scannet_entries = phase_scannet(dev)
     seconds["scannet+dp"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    phase_bench(dev, card_line)
-    seconds["bench"] = time.perf_counter() - t0
+    phase_tools(dev)
+    seconds["tools"] = time.perf_counter() - t0
     large = scene_launches["large room"]
     for e in seg_entries:
         kind = e["name"].split("[")[0]

@@ -1,1 +1,2 @@
-"""Command-line entry points, run as ``python -m repsurf_torch.cli.<name>``."""
+"""Command-line entry points, run as ``python -m repsurf_torch.cli.<name>``;
+``common`` holds what the profiling tools share."""

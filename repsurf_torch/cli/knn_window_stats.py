@@ -4,7 +4,7 @@ tools/knn_window_stats.py.
 
     python -m repsurf_torch.cli.knn_window_stats [--points 80000] [--device cuda]
 
-On bench.py's two rooms (``bench.seg_batch``) and their FPS subsets (N/4,
+On bench.py's two rooms (``common.seg_batch``) and their FPS subsets (N/4,
 then N/16), it prints, per call, the queries of each sample that the
 window pass could not vouch for and the re-solve pass took again
 (``knn_window.resolved``), and the call's seconds.  The port's guard has
@@ -23,7 +23,7 @@ import time
 
 import torch
 
-from ..bench import resolve_device, seg_batch, sync
+from .common import resolve_device, seg_batch, sync
 
 
 def parse_args(argv=None):

@@ -1,7 +1,7 @@
 """Stage timing and per-kernel profile of the classification eval pipeline
-(bench_cls's: batch 64, FPS 2048 -> 1024, repsurf_ssg_umb at ``ClsConfig``
-defaults, random weights from seed 0, eval mode): the port's counterpart of
-tools/profile_cls.py.
+(batch 64 of bench.py's clouds, FPS 2048 -> 1024, repsurf_ssg_umb at
+``ClsConfig`` defaults, random weights from seed 0, eval mode): the port's
+counterpart of tools/profile_cls.py.
 
     python -m repsurf_torch.cli.profile_cls [--ops] [--batch 64] [--device cuda]
 
@@ -24,10 +24,11 @@ import argparse
 import statistics
 import time
 
+import numpy as np
 import torch
 
-from ..bench import cls_points, resolve_device, sync
 from ..utils.profiling import op_table
+from .common import resolve_device, sync
 
 N_RAW = 2048
 QUEUED = 30  # calls a queued stage run
@@ -43,6 +44,11 @@ def parse_args(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (cuda, cuda:1, cpu); the card by default")
     return p.parse_args(argv)
+
+
+def cls_points(batch=64, n_raw=2048):
+    """bench.py's clouds: ``RandomState(0).randn(batch, n_raw, 3)``."""
+    return np.random.RandomState(0).randn(batch, n_raw, 3).astype(np.float32)
 
 
 def queued(fn, dev, label, n=None):

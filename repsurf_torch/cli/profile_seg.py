@@ -4,7 +4,8 @@
     python -m repsurf_torch.cli.profile_seg [--steps 6] [--top 40] [--fwd] \\
         [--scene RAW] [--points 80000] [--device cuda]
 
-Two measurements, on bench_seg's model and batch:
+Two measurements, on ``SegConfig``'s model (seeded weights) and the root
+bench.py's batch of two rooms:
   1. the first step's seconds (kernel build and first launches), then two
      queued runs of ``--steps`` steps, each synchronised once;
   2. ``utils.profiling.op_table`` of ``--steps`` steps: device self time a
@@ -12,8 +13,8 @@ Two measurements, on bench_seg's model and batch:
      wall time, so the card's idle share can be read.
 ``--fwd`` also tables the eval forward (``eval_step``) and the train step
 minus it, by kernel (about the backward and the optimizer).  ``--scene
-RAW`` also tables whole-scene serving: ``predict_scene`` on the first room
-of ``bench_infer_s3dis`` at RAW raw points, chunks of ``--points``.
+RAW`` also tables whole-scene serving: ``predict_scene`` on the first of
+``synthetic_scenes``' rooms at RAW raw points, chunks of ``--points``.
 ``--points`` shrinks the rooms for a run on the CPU (``--device cpu``),
 where the tables list host operators.
 """
@@ -21,10 +22,11 @@ where the tables list host operators.
 import argparse
 import time
 
+import numpy as np
 import torch
 
-from ..bench import resolve_device, seg_train_setup, sync
 from ..utils.profiling import OpTable, op_table
+from .common import resolve_device, seg_batch, sync
 
 SCENE_REPS = 2  # traced predict_scene calls
 
@@ -41,6 +43,34 @@ def parse_args(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (cuda, cuda:1, cpu); the card by default")
     return p.parse_args(argv)
+
+
+def seg_train_setup(n, b, dev):
+    """(cfg, model, optimizer, batch, class weights, generator) of the
+    profiled step: ``SegConfig(voxel_max=n, batch_size=b)``, the model's
+    parameters from seed 0, bench.py's batch on ``dev``."""
+    from ..data.s3dis import CLASS_WEIGHTS
+    from ..train.train_seg import SegConfig, build_model, make_optimizer
+
+    cfg = SegConfig(voxel_max=n, batch_size=b)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    opt = make_optimizer(model, cfg)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in seg_batch(n, b).items()}
+    w = torch.tensor(CLASS_WEIGHTS[5], dtype=torch.float32, device=dev)
+    return cfg, model, opt, batch, w, torch.Generator(dev).manual_seed(1)
+
+
+def synthetic_scenes(n_scenes, raw):
+    """tools/bench_infer_s3dis.py's rooms: ``RandomState(0)``, per scene
+    ``synthetic_room`` and colours in 0..255."""
+    from ..data.synthetic_scene import synthetic_room
+
+    rng = np.random.RandomState(0)
+    scenes = []
+    for _ in range(n_scenes):
+        coord = synthetic_room(raw, rng=rng)
+        scenes.append((coord, (rng.rand(raw, 3) * 255.0).astype(np.float32)))
+    return scenes
 
 
 def difference(a, b):
@@ -101,9 +131,8 @@ def main(argv=None):
 
 def scene_table(model, cfg, raw, dev):
     """``OpTable`` of ``predict_scene`` (chunks of ``cfg.voxel_max``) on the
-    first of bench_infer_s3dis's rooms."""
+    first of ``synthetic_scenes``' rooms."""
     from ..train.eval_s3dis import predict_scene
-    from .bench_infer_s3dis import synthetic_scenes
 
     (coord, feat), = synthetic_scenes(1, raw)
     model.eval()

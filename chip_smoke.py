@@ -77,6 +77,19 @@ Run from the root of a checkout.  Phases, each printing its lines:
                SGD step on the kernel path against the plain path, per
                parameter (with --profile also a torch.profiler table of one
                train step);
+  6b. step graph - the three classifiers (repsurf_ssg_umb, _2x, _tri) at
+               batch 64, GRAPH_STEPS Adam steps each eagerly and through
+               train_step's CUDA graph (one eager step, a capture, replays)
+               from the same weights and generator seed: losses, counts,
+               parameters, buffers, Adam's moments and step counts and the
+               generators' states bit for bit, and the kernel launch
+               counters alike on both sides; for repsurf_ssg_umb timed
+               steps of each side and a torch.profiler trace of each,
+               whose kernels and counts a step must agree (but for the
+               two fills of the generator's seed and offset a replay
+               adds); a capture that fails (a blocking host copy put back
+               in ieee_div) warning once and leaving its key eager with
+               the same results and counters, then a fresh capture;
   7. cli     - python -m repsurf_torch.cli.train_cls --synthetic for 2
                epochs with vote evaluation, then again to 3 epochs, which
                must resume from the checkpoint's epoch;
@@ -196,6 +209,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -204,6 +218,7 @@ import torch
 from repsurf_torch.utils.profiling import (
     PAD_KERNELS,
     PROFILER,
+    checked_trace,
     device_split,
     not_measured_as_null,
 )
@@ -240,6 +255,13 @@ TRI, TRI_PARAMS = "repsurf.repsurf_ssg_tri", 1475087
 PN2, PN2_PARAMS = "pointnet2.pointnet2_ssg", 968173
 PT, PT_PARAMS = "pointtransformer.pointtransformer", 7767729
 FAMILY_STEPS = 3  # timed train steps of each family, after one warm-up
+GRAPH_STEPS = 5  # phase 6b: train steps a classifier, eager against graphed
+GRAPH_TIMED = 20  # phase 6b: timed steps a side
+GRAPH_TRACED = 3  # phase 6b: traced steps a side
+GRAPH_MODELS = ("repsurf.repsurf_ssg_umb", "repsurf.repsurf_ssg_umb_2x",
+                "repsurf.repsurf_ssg_tri")
+GRAPH_TRACE_KERNELS = ("fps_kernel", "umbrella_tq_kernel", "ball_feature_kernel",
+                       "ball_scatter", "bn_sum_kernel", "bn_backward_dx_kernel")
 BALL_FEAT_TPU = "repsurf_tpu/ops/pallas/ball_group.py:208"
 BALL_FEAT_T_TPU = "repsurf_tpu/ops/pallas/ball_group.py:374"
 CLI_TIMEOUT = 300
@@ -1326,6 +1348,168 @@ def phase_cls_train(dev, profile=False):
         points, target = batches[1]
         profile_train_step(lambda: train_step(model, opt, points, target, cfg, generator=gen))
     return launches, fwd_c, bwd_c
+
+
+def kernel_counts(step):
+    """{kernel name: launches a step} and kernel seconds a step from a
+    checked trace (spin-kernel pads, torn traces taken again) of
+    GRAPH_TRACED calls of ``step``; copies and fills by the runtime left
+    out."""
+    rows, _ = checked_trace(step, GRAPH_TRACED)
+    if rows is None:
+        raise AssertionError("step graph: no whole trace of a train step")
+    rows = [r for r in rows if not r[0].startswith(("Memcpy", "Memset"))]
+    return ({name: count / GRAPH_TRACED for name, _, count in rows},
+            sum(ms for _, ms, _ in rows) / 1e3 / GRAPH_TRACED)
+
+
+def graph_side(dev, cfg, base, step, batches, gen_seed):
+    """``step`` over ``batches`` from a copy of ``base`` with a fresh Adam
+    and generator -> (model, optimizer, generator, [(loss, correct)], step
+    ms, step_graph counts of these steps, their kernel launches by
+    counter)."""
+    from repsurf_torch.ops.kernels import launch_counts, launches_since
+    from repsurf_torch.train import step_graph
+    from repsurf_torch.train.train_cls import make_optimizer
+
+    model = copy.deepcopy(base)
+    opt = make_optimizer(model, cfg)
+    gen = torch.Generator(dev).manual_seed(gen_seed)
+    before = dict(step_graph.counts)
+    launched = launch_counts()
+    outs, ms = [], []
+    for points, target in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(step(model, opt, points, target, cfg, generator=gen))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {k: v - before[k] for k, v in step_graph.counts.items()}
+    launches = {f"{o.__name__}.{a}": d for o, a, d in launches_since(launched)}
+    return model, opt, gen, outs, ms, counts, launches
+
+
+def graph_differences(a, b):
+    """Tensors that differ between two sides of ``graph_side``: losses and
+    counts, parameters, buffers, Adam's moments and step counts, and the
+    generators' states."""
+    (ma, oa, ga, outs_a), (mb, ob, gb, outs_b) = a[:4], b[:4]
+    off = [f"step {i} {k}" for i, (x, y) in enumerate(zip(outs_a, outs_b))
+           for k, u, v in (("loss", x[0], y[0]), ("correct", x[1], y[1]))
+           if not torch.equal(u, v)]
+    sb = mb.state_dict()
+    off += [k for k, v in ma.state_dict().items() if not torch.equal(v, sb[k])]
+    for (name, pa), pb in zip(ma.named_parameters(), mb.parameters()):
+        sa, st = oa.state[pa], ob.state[pb]
+        off += [f"{name}.{k}" for k in ("exp_avg", "exp_avg_sq", "step")
+                if not torch.equal(sa[k], st[k])]
+    if not torch.equal(ga.get_state(), gb.get_state()):
+        off.append("generator")
+    return off
+
+
+def phase_step_graph(dev):
+    """The classification train step replayed as a CUDA graph against the
+    same steps run eagerly, for the three classifiers, bit for bit; the
+    kernels a profiler trace records of replayed and of eager steps; a
+    capture that fails (a host copy put back in the forward) leaving the
+    key eager and the results unchanged."""
+    from repsurf_torch.data.scanobjectnn import SyntheticClouds, iterate_batches
+    from repsurf_torch.geometry import polar
+    from repsurf_torch.train.train_cls import ClsConfig, build_model, eager_step, train_step
+
+    print(f"step graph: torch {torch.__version__}, register_generator_state "
+          f"{hasattr(torch.cuda.CUDAGraph, 'register_generator_state')}")
+    data = SyntheticClouds(n_samples=GRAPH_STEPS * BATCH, seed=3)
+    batches = [(torch.from_numpy(p).to(dev), torch.from_numpy(t).to(dev)) for p, t in
+               iterate_batches(data, BATCH, shuffle=True, drop_last=True,
+                               rng=np.random.RandomState(3))]
+    bad = 0
+    for name in GRAPH_MODELS:
+        cfg = ClsConfig(model=name)
+        base = build_model(cfg, generator=torch.Generator().manual_seed(cfg.seed)).to(dev)
+        eager = graph_side(dev, cfg, base, eager_step, batches, 11)
+        graph = graph_side(dev, cfg, base, train_step, batches, 11)
+        off = graph_differences(eager, graph)
+        bad += len(off)
+        print(f"  {name}: {GRAPH_STEPS} steps, losses {[float(o[0]) for o in graph[3]]}; "
+              f"step_graph {graph[5]}; eager ms {[round(t, 3) for t in eager[4]]}, graph ms "
+              f"{[round(t, 3) for t in graph[4]]}; tensors differing from the eager steps "
+              f"{len(off)} {off[:6]}; kernel launches counted, graphed {graph[6]}, eager "
+              f"{'the same' if graph[6] == eager[6] else eager[6]}")
+        if graph[5] != {"captures": 1, "replays": GRAPH_STEPS - 1, "eager": 1}:
+            raise AssertionError(f"{name}: the step was not captured once and replayed")
+        if graph[6] != eager[6] or not graph[6]:
+            raise AssertionError(f"{name}: the launch counters of graphed steps differ from "
+                                 f"those of the eager steps")
+        if name != GRAPH_MODELS[0]:
+            del eager, graph, base
+            torch.cuda.empty_cache()
+            continue
+        # timed steps and a trace of each side, on the models just stepped
+        timed = {}
+        for label, (model, opt, gen) in (("eager", eager[:3]), ("graph", graph[:3])):
+            step = eager_step if label == "eager" else train_step
+            ms = []
+            for i in range(GRAPH_TIMED):
+                points, target = batches[i % len(batches)]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                float(step(model, opt, points, target, cfg, generator=gen)[0])
+                ms.append((time.perf_counter() - t0) * 1e3)
+            points, target = batches[0]
+            traced = kernel_counts(
+                lambda: step(model, opt, points, target, cfg, generator=gen))
+            timed[label] = (statistics.median(ms), *traced)
+        (e_ms, e_k, e_busy), (g_ms, g_k, g_busy) = timed["eager"], timed["graph"]
+        diff = {n: (e_k.get(n, 0), g_k.get(n, 0)) for n in set(e_k) | set(g_k)
+                if e_k.get(n, 0) != g_k.get(n, 0)}
+        # a replay first fills the registered generator's seed and offset
+        fills = [n for n, (e, g) in diff.items() if "FillFunctor<long>" in n and g - e == 2]
+        print(f"  the replay's fills of the generator's seed and offset: {len(fills)} kernel")
+        for n in fills:
+            del diff[n]
+        mine = [n for n in g_k if any(s in n for s in GRAPH_TRACE_KERNELS)]
+        print(f"  timed ({GRAPH_TIMED} steps a side, synchronised, host clock): eager median "
+              f"{e_ms:.3f} ms, graph median {g_ms:.3f} ms ({BATCH / (e_ms / 1e3):.1f} -> "
+              f"{BATCH / (g_ms / 1e3):.1f} clouds/s); kernel seconds a step {e_busy:.6f} / "
+              f"{g_busy:.6f}")
+        print(f"  profiler, {GRAPH_TRACED} steps a side: {len(g_k)} kernels a replayed step "
+              f"({sum(g_k.values()):.0f} launches), {len(e_k)} an eager step "
+              f"({sum(e_k.values()):.0f}); counts that differ {diff}; the port's kernels in "
+              f"the replay {len(mine)}: {sorted(n[:40] for n in mine)[:8]}")
+        if diff or not all(any(s in n for n in g_k) for s in GRAPH_TRACE_KERNELS):
+            raise AssertionError("a trace of replayed steps does not record the eager kernels")
+        del eager, graph, base
+        torch.cuda.empty_cache()
+
+    # a capture that fails: a blocking host copy back in ieee_div
+    cfg = ClsConfig()
+    base = build_model(cfg, generator=torch.Generator().manual_seed(cfg.seed)).to(dev)
+    real = polar.ieee_div
+    polar.ieee_div = lambda x, c: x / torch.tensor(c, dtype=x.dtype, device=x.device)
+    try:
+        eager = graph_side(dev, cfg, base, eager_step, batches[:3], 12)
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            graph = graph_side(dev, cfg, base, train_step, batches[:3], 12)
+    finally:
+        polar.ieee_div = real
+    warned = [str(w.message) for w in warned if "runs eagerly" in str(w.message)]
+    off = graph_differences(eager, graph)
+    bad += len(off)
+    print(f"  a host copy in the forward: step_graph {graph[5]}; tensors differing from the "
+          f"eager steps {len(off)} {off[:6]}; launch counters as the eager steps' "
+          f"{graph[6] == eager[6]}; warnings {len(warned)}: {[w[:120] for w in warned]}")
+    if (graph[5] != {"captures": 0, "replays": 0, "eager": 3} or graph[6] != eager[6]
+            or len(warned) != 1):
+        raise AssertionError("a failed capture did not warn once and leave its key eager")
+    again = graph_side(dev, cfg, base, train_step, batches[:3], 12)
+    print(f"  then a fresh optimizer: step_graph {again[5]}")
+    if again[5] != {"captures": 1, "replays": 2, "eager": 1}:
+        raise AssertionError("no capture after a failed one")
+    if bad:
+        raise AssertionError(f"step graph: {bad} tensors differ from the eager steps")
 
 
 def phase_cli():
@@ -3164,6 +3348,9 @@ def main():
     t0 = time.perf_counter()
     _, _, feat_bwd = phase_cls_train(dev, profile=profile)
     seconds["cls train slice"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_step_graph(dev)
+    seconds["step graph"] = time.perf_counter() - t0
     for e in train_entries:
         counts = {"ball_feature_bwd": feat_bwd, "ball_group": rows_fwd,
                   "ball_group_bwd": rows_bwd}[e["name"].split("[")[0]]

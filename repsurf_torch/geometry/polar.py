@@ -7,7 +7,9 @@ values and gradients stay finite there.
 The normalising divisions divide by 0-dim tensors on the data's device, not
 by Python floats: on CUDA PyTorch turns ``x / c`` for a Python float into
 ``x * (1 / c)``, which can differ from the IEEE division of the JAX package
-and of the CUDA kernels by an ulp.
+and of the CUDA kernels by an ulp.  The divisor is filled on the device
+(``new_full``): a ``torch.tensor`` there would be a blocking copy from the
+host, which drains the launch queue and cannot be captured in a CUDA graph.
 """
 
 import math
@@ -17,7 +19,7 @@ import torch
 
 def ieee_div(x, c):
     """x / c for a Python float c, as an IEEE division on every device."""
-    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+    return x / x.new_full((), c)
 
 
 def xyz2sphere(xyz, normalize=True):

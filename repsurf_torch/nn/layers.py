@@ -145,8 +145,9 @@ class Dropout(nn.Module):
     In training, ``forward(x, generator)`` keeps each element with
     probability 1 - p, drawn as ``torch.rand(...) < 1 - p`` from
     ``generator`` (on x's device), and scales the kept ones by 1 / (1 - p),
-    flax's ``nn.Dropout`` formula.  In eval mode, or at p = 0, it is the
-    identity and draws nothing.
+    flax's ``nn.Dropout`` formula, dividing by 1 - p filled on x's device (no
+    copy from the host).  In eval mode, or at p = 0, it is the identity and
+    draws nothing.
     """
 
     def __init__(self, p=0.5):
@@ -160,4 +161,4 @@ class Dropout(nn.Module):
             raise ValueError("training-mode dropout needs an explicit generator")
         keep = 1.0 - self.p
         mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-        return torch.where(mask, x / torch.tensor(keep, dtype=x.dtype, device=x.device), 0.0)
+        return torch.where(mask, x / x.new_full((), keep), 0.0)

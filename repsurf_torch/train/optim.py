@@ -20,9 +20,17 @@ import torch
 def make_adam(params, base_lr=1e-3, weight_decay=1e-4):
     """``torch.optim.Adam`` as the classification recipe sets it
     (train_cls_scanobjectnn.py:179-185): betas (0.9, 0.999), eps 1e-8,
-    coupled L2."""
+    coupled L2.  Where ``train/step_graph.py`` can graph the step (CUDA
+    parameters, no process group) it is ``capturable``: its step count and
+    bias corrections live on the device, so that a CUDA graph can hold the
+    update; the update may then differ from the host-corrected one in the
+    last bit.  The data-parallel step's Adam (in a process group) is not."""
+    params = list(params)
+    capturable = (bool(params) and all(p.is_cuda for p in params)
+                  and not (torch.distributed.is_available()
+                           and torch.distributed.is_initialized()))
     return torch.optim.Adam(params, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=weight_decay)
+                            weight_decay=weight_decay, capturable=capturable)
 
 
 def make_sgd(params, base_lr, momentum=0.9, weight_decay=0.0):

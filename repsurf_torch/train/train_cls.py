@@ -3,8 +3,9 @@
 ``train_step``: FPS 2048 -> ``num_point``, the optional scale / shift
 augmentation, a training forward (batch statistics, a random +-1 normal
 inversion per sample, head dropout), the label-smoothed loss, backward and
-the optimizer step.  ``train_epoch`` sets the epoch's StepLR rate and runs
-the steps over shuffled, drop-last batches.
+the optimizer step, on a CUDA device replayed as one CUDA graph
+(``step_graph``).  ``train_epoch`` sets the epoch's StepLR rate and runs the
+steps over shuffled, drop-last batches.
 
 Vote evaluation, per batch: FPS 2048 -> ``num_point``, then ``num_votes``
 forwards in eval mode.  Vote 0 is unscaled, votes 1.. are rescaled by
@@ -16,6 +17,7 @@ Every random draw comes from an explicit ``torch.Generator``.
 """
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -25,6 +27,7 @@ from ..data.transforms import fps_sample, scale_point_cloud, transform_point_clo
 from ..models import get_model
 from ..nn.losses import smooth_cls_loss
 from ..utils.spans import span
+from . import step_graph
 from .optim import make_adam, make_sgd, set_lr, step_lr
 
 
@@ -125,9 +128,23 @@ def train_step(model, optimizer, points, target, cfg, generator=None, signs=None
         the head's dropout masks.
       signs: optional [B] +-1 normal inversion (not drawn when given).
 
+    Where ``step_graph.graphable`` holds (CUDA inputs, no process group, a
+    capturable optimizer: ``make_adam`` on CUDA parameters), the step is
+    captured as a CUDA graph on its second call with the same key and
+    replayed from then on (``step_graph.run``); elsewhere it is
+    ``eager_step``.
+
     Returns:
-      (loss, correct) tensors.
+      (loss, correct) tensors of their own.
     """
+    if step_graph.graphable(points, optimizer):
+        return step_graph.run(functools.partial(eager_step, cfg=cfg), model, optimizer,
+                              points, target, generator, signs, config=cfg)
+    return eager_step(model, optimizer, points, target, cfg, generator, signs)
+
+
+def eager_step(model, optimizer, points, target, cfg, generator=None, signs=None):
+    """``train_step`` without a graph: launch by launch from the host."""
     logp = train_forward(model, points, cfg, generator, signs)
     loss = smooth_cls_loss(logp, target)
     optimizer.zero_grad(set_to_none=True)

@@ -19,7 +19,11 @@ Names are ``<layer>.<stage>``:
   on the host by ``np.argsort`` at a boundary tie is a ``scene.crop_host``
   inside its ``scene.crop``; the batches need no upload;
 * ``train.forward``, ``train.backward``, ``train.update`` (both train
-  steps; the forward and the update also in the data-parallel steps);
+  steps; the forward and the update also in the data-parallel steps).  A
+  classification step replayed as a CUDA graph (``train/step_graph.py``)
+  holds only ``train.forward``, around the copy of its inputs in and the
+  replay: the host issues nothing for the backward and the update there,
+  so the spans still cover the host's real issue time;
 * ``serve.sample`` and one ``serve.forward`` a vote (``train_cls.eval_step``);
 * ``pt.attention`` (a ``PointTransformerLayer``: its kNN, gathers, both
   MLPs, softmax and weighted sum), ``pt.down`` (a strided

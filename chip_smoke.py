@@ -70,6 +70,18 @@ Run from the root of a checkout.  Phases, each printing its lines:
                large for shared memory (the global-memory variant); then
                ops/neighbors.ball_group, the row kernel's entry point,
                driven forward and backward;
+  5b. pointnext kernels - at the shapes of s3dis_pnx_train's step, on 8
+               of its crops (24,000 points of 220,000-point rooms at 0.04
+               voxels, valid counts), each against its plain version: FPS
+               24,000 -> 6,000 -> 1,500 -> 375 -> 93 (indices equal); the
+               ball grouping as PointNeXt calls it (no polar) at each
+               stage's set abstraction (C = 67, 131, 259, 515) and one
+               self-query of its blocks (C = 131, 259, 515, 1,027; radii
+               0.1 to 1.6): dp, feat and the selection bit-equal to the
+               plain version and ball_query, and its scatter backward held
+               as in phase 5 (untimed); the decoder's 3-NN through
+               ops/neighbors.knn (indices and distances equal to
+               knn_plain);
   6. cls train slice - repsurf_ssg_umb at full width, seeded random
                weights, ClsConfig defaults, one epoch of 8 train steps
                (batch 64, 2048 -> 1024) through train_epoch and 8 more timed
@@ -236,6 +248,10 @@ SEG_LOGIT_ATOL = 1e-4  # seg logits, kernel path against plain path
 RESOLVE_LIMIT = 64  # window re-solves a sample at the seg shapes (the JAX smoke run's limit)
 LARGE_ROOM_RAW = 400000  # the --voxel_max 0 room's raw points
 FPS_LARGE = ((1, 150000, 2048, (10.0, 10.0, 3.0)), (2, 400000, 1024, (16.0, 16.0, 3.0)))
+# s3dis_pnx_train's step: 8 crops of 24,000 points at 0.04 voxels of
+# 220,000-point rooms; PointNeXt-XL's width, first radius and ball size
+PNX_BATCH, PNX_POINTS, PNX_RAW, PNX_VOXEL = 8, 24000, 220000, 0.04
+PNX_WIDTH, PNX_RADIUS, PNX_NSAMPLE = 64, 0.1, 32
 SLOW_MS = 2000.0  # a plain version this slow is timed fewer times
 ONCE_MS = 1000.0  # in phase 11b, a plain version this slow is timed once
 FPS_SRC, FPS_TPU = "repsurf_torch/csrc/fps.cu", "repsurf_tpu/ops/pallas/fps.py:36"
@@ -318,6 +334,8 @@ BN_SHAPES = (  # (label, x, its mask or None, ReLU): the cells' batch norms, the
     ("cls SA1", (64, 512, 32, 64), None, True),
     ("FP", (8, 80000, 128), (8, 80000, 1), False),
     ("PT stage 5", (8, 312, 16, 512), (8, 312, 1), True),
+    ("PointNeXt stage-1 aggregation", (8, 6000, 32, 128), (8, 6000, 1), True),
+    ("PointNeXt stage-4 expansion, two slices", (8, 93, 4096), (8, 93, 1), True),
     ("cls head", (64, 256), None, True),
     ("odd C", (2, 3000, 13), (2, 3000, 1), True),
     ("few rows", (2, 37, 6), (2, 37, 1), True),
@@ -1037,13 +1055,13 @@ def check_scatter_runs(name, sel, g, n, coff):
     return out
 
 
-def check_scatter(name, replaces, sel, g, n, coff, backward_fn):
+def check_scatter(name, replaces, sel, g, n, coff, backward_fn, timed=True):
     """The backward kernel at one shape: ``backward_fn`` (the gradient as
     the autograd Function returns it) twice, bit-equal, and equal to the
     scatter kernel called on sel; its runs equal to selection_csr's and
     its sums bit-equal to the ordered float32 oracle; within SCATTER_RTOL
     of the sum of the |contributions| of each element of a float64
-    scatter-add."""
+    scatter-add.  Then, if ``timed``, its kernels-JSON entry."""
     from repsurf_torch.ops.kernels.ball_group import ball_scatter, ball_scatter_plain
 
     a, b = backward_fn(), backward_fn()
@@ -1061,6 +1079,8 @@ def check_scatter(name, replaces, sel, g, n, coff, backward_fn):
     print(f"  {name}: bit-equal twice; runs equal to selection_csr's; bit-equal to the "
           f"ordered float32 sum; worst |err| / sum|contributions| {worst:.3g} "
           f"(limit {SCATTER_RTOL})")
+    if not timed:
+        return None
     # the library call: index_add_ of the cotangent rows into a [B*N, C]
     # buffer (its flat point keys made once, outside the timing)
     bsz, c = sel.shape[0], g.shape[-1]
@@ -1229,6 +1249,112 @@ def phase_train_kernels(stages):
     print(f"  ops/neighbors.ball_group forward and backward at both stages: launches by C "
           f"{fwd}, backward {bwd}")
     return entries, fwd, bwd
+
+
+def pnx_crops(dev, seed=7):
+    """The cell s3dis_pnx_train's inputs at its size: 8 crops of 24,000
+    points of 220,000-point rooms at 0.04 voxels (``seg_crop_train.crop``),
+    with their valid counts, on the card."""
+    from benchmark.data.synthetic_scene import raw_room
+    from benchmark.traffic.seg_crop_train import crop
+
+    rng = np.random.RandomState(seed)
+    coord = np.stack([crop(rng, *raw_room(rng, PNX_RAW), PNX_POINTS, PNX_VOXEL)[0]
+                      for _ in range(PNX_BATCH)])
+    return (torch.from_numpy(coord).to(dev),
+            torch.full((PNX_BATCH,), PNX_POINTS, dtype=torch.int32, device=dev))
+
+
+def check_pnx_ball(tag, radius, xyz, q, channels, valid, gen):
+    """A local aggregation's grouping as PointNeXt calls it
+    (``ball_group_feature`` on [xyz, feat], the cloud's valid counts, no
+    polar): dp, feat and the selection the kernel writes equal to the plain
+    version's and ball_query's, bit for bit; the scatter backward into the
+    channels as check_scatter holds it.  Returns the median hits a ball."""
+    from repsurf_torch.ops.kernels.ball_group import (
+        ball_group_feature,
+        ball_group_feature_plain,
+        ball_group_feature_selection,
+    )
+    from repsurf_torch.ops.neighbors import ball_query
+
+    b, n, m = xyz.shape[0], xyz.shape[1], q.shape[1]
+    feat = torch.randn((b, n, channels - 3), generator=gen, device=xyz.device)
+    args = (radius, PNX_NSAMPLE, xyz, q, [xyz, feat])
+    name = f"{tag} [{b}x{n}->{m},r={radius},S={PNX_NSAMPLE},C={channels}]"
+    with torch.no_grad():
+        pos, got, sel = ball_group_feature_selection(*args, valid=valid)
+        ppos, pfeat = ball_group_feature_plain(*args, valid=valid)
+        psel = ball_query(radius, PNX_NSAMPLE, xyz, q, valid=valid)
+        torch.cuda.synchronize()
+        if not torch.equal(sel, psel):
+            raise AssertionError(f"{name}: the selection differs from ball_query's at "
+                                 f"{int((sel != psel).sum())} slots")
+        if not (torch.equal(got, pfeat) and torch.equal(pos, ppos)):
+            raise AssertionError(f"{name}: dp or feat not bit-equal to the plain version")
+        hits = (sel != sel[..., :1]).sum(-1) + 1
+        del pos, got, ppos, pfeat, psel
+    tcat = torch.cat([xyz, feat], dim=-1)
+    leaf = tcat.requires_grad_(True)
+    g = torch.randn((b, m, PNX_NSAMPLE, channels - 3), generator=gen, device=xyz.device)
+
+    def backward():
+        _, out = ball_group_feature(radius, PNX_NSAMPLE, xyz, q, [leaf], valid=valid)
+        return torch.autograd.grad(out, leaf, g)[0]
+
+    check_scatter(f"{name} backward", None, sel, g, n, 3, backward, timed=False)
+    return float(hits.float().median())
+
+
+def phase_pnx_kernels(dev):
+    """PointNeXt-XL's kernels at the shapes of s3dis_pnx_train's step, on the
+    cell's crops, each against its plain version: FPS 24,000 -> 6,000 ->
+    1,500 -> 375 -> 93; the ball grouping and its scatter backward of each
+    stage's set abstraction and of one of its blocks' self-queries; the
+    decoder's 3-NN."""
+    from repsurf_torch.ops.gather import index_points
+    from repsurf_torch.ops.kernels.fps import fps, fps_plain
+    from repsurf_torch.ops.kernels.knn import knn_plain
+    from repsurf_torch.ops.neighbors import knn
+
+    print("pointnext kernels: FPS, ball grouping and its backward, 3-NN at the cell's shapes")
+    xyz, valid = pnx_crops(dev)
+    gen = torch.Generator(dev).manual_seed(25)
+    xyzs, valids = [xyz], [valid]
+    for _ in range(4):  # the four set abstractions' FPS, stride 4
+        n = xyzs[-1].shape[1]
+        idx = fps(xyzs[-1], n // 4, valid=valids[-1])
+        pidx = fps_plain(xyzs[-1], n // 4, valid=valids[-1])
+        torch.cuda.synchronize()
+        if not torch.equal(idx, pidx):
+            raise AssertionError(f"fps [{PNX_BATCH}x{n}->{n // 4}]: indices differ at "
+                                 f"{int((idx != pidx).sum())} slots")
+        xyzs.append(index_points(xyzs[-1], idx))
+        valids.append(valids[-1] // 4)
+    print(f"  fps {' -> '.join(str(x.shape[1]) for x in xyzs)} (x{PNX_BATCH}, valid counts): "
+          f"indices equal to fps_plain at each stage")
+    widths = [PNX_WIDTH * 2 ** i for i in range(5)]
+    for s in range(1, 5):
+        r = PNX_RADIUS * 2 ** (s - 1)
+        sa = check_pnx_ball(f"stage {s} set abstraction", r, xyzs[s - 1], xyzs[s],
+                            widths[s - 1] + 3, valids[s - 1], gen)
+        block = check_pnx_ball(f"stage {s} block", 2 * r, xyzs[s], xyzs[s], widths[s] + 3,
+                               valids[s], gen)
+        print(f"  stage {s}: set abstraction and block grouping, forward and backward, equal "
+              f"to the plain versions; median hits a ball {sa:g} and {block:g} of "
+              f"{PNX_NSAMPLE}")
+        torch.cuda.empty_cache()
+    for s in range(4, 0, -1):  # the decoder: stage s's points onto stage s - 1's
+        idx, dist = knn(3, xyzs[s], xyzs[s - 1], valid=valids[s])
+        pidx, pdist = knn_plain(3, xyzs[s], xyzs[s - 1], valid=valids[s])
+        torch.cuda.synchronize()
+        if not (torch.equal(idx, pidx) and torch.equal(dist, pdist)):
+            raise AssertionError(f"3-NN [{PNX_BATCH}x{xyzs[s].shape[1]}->"
+                                 f"{xyzs[s - 1].shape[1]}]: differs from knn_plain")
+    pairs = ", ".join(f"{xyzs[s].shape[1]} -> {xyzs[s - 1].shape[1]}" for s in range(4, 0, -1))
+    print(f"  3-NN of the decoder ({pairs}): indices and distances equal to knn_plain")
+    del xyzs, valids
+    torch.cuda.empty_cache()
 
 
 def phase_cls_train(dev, profile=False):
@@ -3345,6 +3471,9 @@ def main():
     train_entries, rows_fwd, rows_bwd = phase_train_kernels(stages)
     del stages
     seconds["train kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_pnx_kernels(dev)
+    seconds["pointnext kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     _, _, feat_bwd = phase_cls_train(dev, profile=profile)
     seconds["cls train slice"] = time.perf_counter() - t0

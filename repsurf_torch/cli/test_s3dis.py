@@ -26,7 +26,7 @@ import os
 import numpy as np
 import torch
 
-from ..models import SEG_MODELS
+from ..models import SEG_MODELS, SEG_RECIPES
 
 
 def parse_args(argv=None):
@@ -81,7 +81,7 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device here (use --device cpu)")
     cfg = SegConfig(model=args.model, group_size=args.group_size,
-                    return_polar=args.return_polar)
+                    return_polar=args.return_polar, **SEG_RECIPES.get(args.model, {}))
     exp = os.path.join(args.log_root, "S3DIS", args.log_dir or "default")
     log_dir = os.path.join(exp, "logs")
     logger = get_logger(log_dir, "test_s3dis")

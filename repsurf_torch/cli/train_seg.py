@@ -47,7 +47,7 @@ import statistics
 import numpy as np
 import torch
 
-from ..models import SEG_MODELS
+from ..models import SEG_MODELS, SEG_RECIPES
 
 
 def parse_args(argv=None):
@@ -251,7 +251,7 @@ def _train(args, device, bn=None):
         aug_scale=args.aug_scale, aug_rotate=args.aug_rotate, aug_jitter=args.aug_jitter,
         aug_flip=args.aug_flip, aug_shift=args.aug_shift, color_contrast=args.color_contrast,
         color_shift=args.color_shift, color_jitter=args.color_jitter, hs_shift=args.hs_shift,
-        color_drop=args.color_drop,
+        color_drop=args.color_drop, **SEG_RECIPES.get(args.model, {}),
     )
     if cfg.data_norm != "mean":
         raise ValueError(f"--data_norm {cfg.data_norm}: the S3DIS pipeline mean-centres")

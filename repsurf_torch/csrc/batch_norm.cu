@@ -64,7 +64,7 @@
 namespace {
 
 constexpr int kRowThreads = 256;  // elementwise: threads a block, lanes x rows an iteration
-constexpr int kMaxThreads = 512;  // so C = 2048 in float4 accesses
+constexpr int kMaxThreads = 512;  // C = 2048 in float4 accesses a slice (Geometry)
 constexpr int kMaxBlocks = 2048;  // elementwise: about four waves over the H100's 132 SMs
 constexpr int kMinIters = 16;     // elementwise: iterations a block at least
 constexpr int kMinRows = 128;     // elementwise: rows a block at least
@@ -583,8 +583,9 @@ bn_count_kernel(const unsigned char* __restrict__ mask, long long groups,
 
 // ---- the elementwise kernels ------------------------------------------------
 
-// Where a block's threads sit: lane (VEC channels from c0) and row in the
-// iteration (sub); the block's rows [r0, r1).
+// Where a block's threads sit: lane (VEC channels from c0, in the block's
+// slice of lanes * VEC channels, blockIdx.y) and row in the iteration
+// (sub); the block's rows [r0, r1).
 struct Place {
   int lane, sub, c0;
   long long r0, r1;
@@ -595,7 +596,7 @@ __device__ __forceinline__ Place place(long long rows, int lanes, int vec,
   Place p;
   p.lane = threadIdx.x % lanes;
   p.sub = threadIdx.x / lanes;
-  p.c0 = p.lane * vec;
+  p.c0 = ((int)blockIdx.y * lanes + p.lane) * vec;
   p.r0 = (long long)blockIdx.x * rows_per_block;
   p.r1 = p.r0 + rows_per_block < rows ? p.r0 + rows_per_block : rows;
   return p;
@@ -696,17 +697,23 @@ bn_backward_dx_kernel(GradCommon<T> op, int lanes, int rpi, long long rows,
 
 // The elementwise kernels' launch shape over x [rows, c] with accesses of
 // vec values; geometry takes the widest that c and every row-major
-// pointer's alignment (the OR of their addresses) allow.  False for a shape
-// the kernels do not take.
+// pointer's alignment (the OR of their addresses) allow.  A row of more than
+// kMaxThreads accesses is cut into the fewest equal slices of at most that
+// many, one a grid row (blockIdx.y): every element takes the same
+// operations whatever its slice.  False for a shape the kernels do not take.
 struct Geometry {
-  int vec, lanes, rpi, threads, blocks;
+  int vec, lanes, slices, rpi, threads, blocks;
   long long rows_per_block;
 };
 
 bool shape(long long rows, int c, int vec, Geometry* geo) {
-  if (c < 1 || rows < 0 || c % vec != 0 || c / vec > kMaxThreads) return false;
+  if (c < 1 || rows < 0 || c % vec != 0) return false;
+  const int all = c / vec;
+  int slices = (all + kMaxThreads - 1) / kMaxThreads;
+  while (all % slices != 0) ++slices;
   geo->vec = vec;
-  geo->lanes = c / vec;
+  geo->slices = slices;
+  geo->lanes = all / slices;
   geo->rpi = geo->lanes >= kRowThreads ? 1 : kRowThreads / geo->lanes;
   geo->threads = geo->lanes * geo->rpi;
   long long per = (rows + kMaxBlocks - 1) / kMaxBlocks;
@@ -849,7 +856,7 @@ struct NormalizeLaunch {
     if constexpr (sizeof(T) * V > 16) {
       return (int)cudaErrorInvalidValue;
     } else {
-      bn_normalize_kernel<T, V><<<geo.blocks, geo.threads, 0, stream>>>(
+      bn_normalize_kernel<T, V><<<dim3(geo.blocks, geo.slices), geo.threads, 0, stream>>>(
           static_cast<const T*>(x), rows, c, geo.lanes, geo.rpi, geo.rows_per_block,
           static_cast<const T*>(mean), static_cast<const T*>(scale), from_var, (T)eps,
           static_cast<const T*>(weight), static_cast<const T*>(bias), relu, static_cast<T*>(y));
@@ -888,7 +895,7 @@ struct BackwardLaunch {
   }
   template <typename T, int W>
   int dx_launch(const GradCommon<T>& op, const T* dcs, const T* ds) const {
-    bn_backward_dx_kernel<T, W><<<geo.blocks, geo.threads, 0, stream>>>(
+    bn_backward_dx_kernel<T, W><<<dim3(geo.blocks, geo.slices), geo.threads, 0, stream>>>(
         op, geo.lanes, geo.rpi, rows, geo.rows_per_block, dcs, ds, static_cast<T*>(dx));
     return (int)cudaGetLastError();
   }

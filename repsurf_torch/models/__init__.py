@@ -2,6 +2,8 @@
 (repsurf_tpu/models/__init__.py)."""
 
 from .pointnet2_seg import PointNet2Segmentor, pointnet2_ssg
+from .pointnext_seg import RECIPE as POINTNEXT_RECIPE
+from .pointnext_seg import PointNeXtSegmentor, pointnext_xl
 from .pointtransformer_seg import PointTransformerSegmentor, pointtransformer
 from .repsurf_cls import RepSurfClassifier, repsurf_ssg_tri, repsurf_ssg_umb, repsurf_ssg_umb_2x
 from .repsurf_seg import RepSurfSegmentor, repsurf_umb_ssg
@@ -15,8 +17,13 @@ SEG_MODELS = {
     "repsurf.repsurf_umb_ssg": repsurf_umb_ssg,
     "pointnet2.pointnet2_ssg": pointnet2_ssg,
     "pointtransformer.pointtransformer": pointtransformer,
+    "pointnext.pointnext_xl": pointnext_xl,
 }
 _REGISTRY = {**CLS_MODELS, **SEG_MODELS}
+# a seg model's training-recipe fields of train_seg.SegConfig, where they
+# differ from RepSurf's defaults; the CLIs apply them on --model (a model
+# not listed trains on the defaults)
+SEG_RECIPES = {"pointnext.pointnext_xl": POINTNEXT_RECIPE}
 
 
 def get_model(name, **kwargs):
@@ -30,13 +37,16 @@ def get_model(name, **kwargs):
 
 __all__ = [
     "PointNet2Segmentor",
+    "PointNeXtSegmentor",
     "PointTransformerSegmentor",
     "RepSurfClassifier",
     "RepSurfSegmentor",
     "CLS_MODELS",
     "SEG_MODELS",
+    "SEG_RECIPES",
     "get_model",
     "pointnet2_ssg",
+    "pointnext_xl",
     "pointtransformer",
     "repsurf_ssg_tri",
     "repsurf_ssg_umb",

@@ -38,6 +38,7 @@ def _counters():
             (knn_brute, "launches_by_k"), (knn_brute, "launches_by_shape"),
             (ball_group_feature, "launches"), (ball_group_feature, "launches_by_channels"),
             (ball_group_feature, "backward_launches_by_channels"),
+            (ball_group_feature, "launches_by_shape"),
             (ball_group_channels, "launches_by_channels"),
             (ball_group_channels, "backward_launches_by_channels"),
             (umbrella, "launches"), (umbrella, "launches_by_style"),
@@ -82,7 +83,8 @@ def kernel_launches():
     the plain versions run): FPS by route, window kNN and its re-solve,
     brute kNN by route, both kNN kernels by k, FPS and both kNN kernels by
     shape ("BxN->M", kNN with ",k=K"), the ball-feature kernel and its
-    backward by channel count, the umbrella kernel by impl, the chunk
+    backward by channel count, the ball-feature kernel by shape
+    ("BxN->M,S=nsample,C=channels"), the umbrella kernel by impl, the chunk
     mean, the batch norm by route (a call each: 'stats', 'normalize',
     'backward', 'eval'), and the steps of a CUDA graph (``step_graph``:
     'captures', 'replays', 'eager').  Each counts launches on the card: a
@@ -106,6 +108,7 @@ def kernel_launches():
             "knn_brute_by_shape": dict(knn_brute.launches_by_shape),
             "ball_feature_by_c": dict(ball_group_feature.launches_by_channels),
             "ball_feature_bwd_by_c": dict(ball_group_feature.backward_launches_by_channels),
+            "ball_feature_by_shape": dict(ball_group_feature.launches_by_shape),
             "umbrella": dict(umbrella_features_kernel.launches),
             "chunk_mean": chunk_mean.launches, "batch_norm": dict(batch_norm.launches),
             "step_graph": dict(step_graph)}

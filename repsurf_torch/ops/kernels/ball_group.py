@@ -191,6 +191,7 @@ def _feature_launch(tcat, xyz, new_xyz, valid, radius, nsample, return_polar, ke
     check_launch(status, "repsurf_ball_feature")
     ball_group_feature.launches += 1
     ball_group_feature.launches_by_channels[c] += 1
+    ball_group_feature.launches_by_shape[f"{b}x{n}->{m},S={nsample},C={c}"] += 1
     return pos, feat, sel
 
 
@@ -252,6 +253,9 @@ ball_group_feature.launches = 0
 # launches keyed by the grouped channel count C (13 and 141 in the classifier)
 ball_group_feature.launches_by_channels = collections.Counter()
 ball_group_feature.backward_launches_by_channels = collections.Counter()
+# launches keyed by "BxN->M,S=nsample,C=channels": points, queries, group size
+# and grouped channels (self-queries read N->N)
+ball_group_feature.launches_by_shape = collections.Counter()
 
 
 class _BallGroup(torch.autograd.Function):

@@ -79,9 +79,8 @@ def make_seg_train_step(cfg, bn="per_device"):
     takes the plain argmax there.  ``freeze`` masks the surface constructor
     after the gradients are averaged, as JAX does.
     """
-    from ..nn.losses import weighted_cross_entropy
     from ..nn.metrics import intersection_and_union
-    from ..train.train_seg import apply_update, predict, train_forward
+    from ..train.train_seg import apply_update, predict, seg_loss, train_forward
 
     if bn not in ("per_device", "sync"):
         raise ValueError(f"bn {bn!r}: per_device or sync")
@@ -94,7 +93,7 @@ def make_seg_train_step(cfg, bn="per_device"):
         label = batch["label"]
         with bn_process_group(model, bn_group):
             logits = train_forward(model, batch, generator)
-            loss = weighted_cross_entropy(logits, label, class_weight, cfg.ignore_label)
+            loss = seg_loss(logits, label, class_weight, cfg)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
         average_gradients(model)

@@ -1,10 +1,14 @@
 """Segmentation train and eval steps (repsurf_tpu/train/train_seg.py).
 
 ``train_step``: the training forward (sectorized FPS, batch statistics,
-head dropout, a random normal inversion per sample), the weighted
-cross-entropy with the ignore label, backward, AdamW, and the histogram
-counters.  ``eval_step`` is the serving forward: running statistics, no
-sectors, no dropout, no inversion.
+head dropout, a random normal inversion per sample), the loss with the
+ignore label, backward, AdamW, and the histogram counters.  ``eval_step``
+is the serving forward: running statistics, no sectors, no dropout, no
+inversion.
+
+The loss is ``seg_loss``: the weighted cross-entropy, or with
+``label_smoothing`` above 0 torch's label-smoothed cross-entropy, which
+weighs every class 1.
 
 Every seg name trains through the same step: the repsurf model draws its
 normal inversion, the baselines take none.  ``freeze=True`` follows the JAX
@@ -68,6 +72,9 @@ class SegConfig:
     return_polar: bool = False
     num_sector: int = 4
     head_dropout: float = 0.5
+    # the loss's label smoothing (PointNeXt's S3DIS recipe: 0.2); 0 keeps the
+    # weighted cross-entropy
+    label_smoothing: float = 0.0
     # augmentation flags (tool/train.py:74-94)
     aug_scale: bool = False
     aug_rotate: Optional[str] = None
@@ -142,6 +149,20 @@ def apply_update(model, optimizer, freeze=False):
                 p.copy_(s)
 
 
+def seg_loss(logits, label, class_weight, cfg):
+    """The segmentation loss: ``weighted_cross_entropy`` at
+    ``cfg.label_smoothing`` 0; above it torch's ``cross_entropy`` with that
+    label smoothing and the ignore label, the mean over the points kept.
+    The recipe that smooths (PointNeXt's) weighs every class 1, so
+    ``class_weight`` is not used there."""
+    if cfg.label_smoothing == 0.0:
+        return weighted_cross_entropy(logits, label, class_weight, cfg.ignore_label)
+    k = logits.shape[-1]
+    return torch.nn.functional.cross_entropy(
+        logits.reshape(-1, k), label.reshape(-1).long(), ignore_index=cfg.ignore_label,
+        label_smoothing=cfg.label_smoothing)
+
+
 def train_step(model, optimizer, batch, class_weight, cfg, generator=None, freeze=False):
     """One training step, in place on ``model`` and ``optimizer``.
 
@@ -161,7 +182,7 @@ def train_step(model, optimizer, batch, class_weight, cfg, generator=None, freez
     """
     label = batch["label"]
     logits = train_forward(model, batch, generator)
-    loss = weighted_cross_entropy(logits, label, class_weight, cfg.ignore_label)
+    loss = seg_loss(logits, label, class_weight, cfg)
     optimizer.zero_grad(set_to_none=True)
     with span("train.backward"):
         loss.backward()
@@ -186,8 +207,7 @@ def eval_step(model, batch, class_weight, cfg):
     model.eval()
     with torch.no_grad():
         logits = model(batch["coord"], batch["feat"], batch["valid"])
-        loss = weighted_cross_entropy(logits, batch["label"], class_weight,
-                                      cfg.ignore_label)
+        loss = seg_loss(logits, batch["label"], class_weight, cfg)
     pred = predict(logits, cfg)
     return loss, pred, intersection_and_union(pred, batch["label"], cfg.num_class,
                                               cfg.ignore_label)

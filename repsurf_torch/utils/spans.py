@@ -29,11 +29,17 @@ Names are ``<layer>.<stage>``:
   MLPs, softmax and weighted sum), ``pt.down`` (a strided
   ``TransitionDown``: FPS, kNN grouping, Linear, BN, max-pool) and
   ``pt.up`` (a ``TransitionUp``), inside ``train.forward`` or a forward of
-  PointTransformer (``nn/pointtransformer.py``).
+  PointTransformer (``nn/pointtransformer.py``);
+* ``pnx.aggregate`` (a PointNeXt local aggregation, a set abstraction's or
+  an inverted-residual block's: from the ball query to the max over the
+  slots), inside it ``pnx.group`` (its ball query and gather), and
+  ``pnx.mlp`` (an inverted-residual block's two pointwise layers and its
+  residual), inside ``train.forward`` or a forward of PointNeXt
+  (``nn/pointnext.py``).
 
 Counts come from the spans: the number of ``scene.crop`` spans is the
-number of crops.  Apart from PointTransformer's, no model or kernel holds a
-span: a model span's host time is its launch time, and the time the host
+number of crops.  Apart from PointTransformer's and PointNeXt's, no model
+or kernel holds a span: a model span's host time is its launch time, and the time the host
 waits inside it for the card when the launch queue is full.
 """
 

@@ -1,6 +1,7 @@
 """The port's spans (``utils/spans.py``) as a ``torch.profiler`` trace shows
 them, on the CPU: a room's host stages, a train step's forward, backward
-and update, a served request's sample and forwards; and that the helper
+and update, PointNeXt's aggregations and block MLPs, a served request's
+sample and forwards; and that the helper
 enters no ``record_function`` while nothing records."""
 
 import json
@@ -12,7 +13,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repsurf_torch.cli import test_s3dis as s3dis_cli
 from repsurf_torch.data.synthetic_scene import SyntheticRooms
-from repsurf_torch.models import get_model
+from repsurf_torch.models import SEG_RECIPES, get_model
 from repsurf_torch.train import eval_s3dis as te
 from repsurf_torch.train import train_cls as ttc
 from repsurf_torch.train import train_seg as tts
@@ -129,6 +130,34 @@ def test_train_steps_span_forward_backward_update_in_order(step, tmp_path):
     train = [s for s in found if s[0].startswith("train.")]
     assert [s[0] for s in train] == ["train.forward", "train.backward", "train.update"]
     assert all(a[2] <= b[1] for a, b in zip(train, train[1:]))
+
+
+def test_a_pointnext_step_spans_each_aggregation_its_group_and_each_block_mlp(tmp_path):
+    """A PointNeXt train step: ``pnx.aggregate`` once a local aggregation
+    (a set abstraction's or a block's, 2 + 1 here), each holding one
+    ``pnx.group`` and no ``pnx.mlp``; ``pnx.mlp`` once an inverted-residual
+    block, after its aggregation; all inside ``train.forward``."""
+    cfg = tts.SegConfig(model="pointnext.pointnext_xl",
+                        **SEG_RECIPES["pointnext.pointnext_xl"])
+    model = get_model(cfg.model, generator=torch.Generator().manual_seed(0), width=8,
+                      blocks=(1, 2, 1), strides=(1, 4, 4))
+    rs = np.random.RandomState(1)
+    batch = {"coord": torch.from_numpy(rs.rand(2, 512, 3).astype(np.float32)),
+             "feat": torch.from_numpy(rs.rand(2, 512, 3).astype(np.float32)),
+             "label": torch.from_numpy(rs.randint(0, NUM_CLASS, (2, 512))),
+             "valid": torch.tensor([512, 400], dtype=torch.int32)}
+    optimizer = tts.make_optimizer(model, cfg)
+    _, found = traced(lambda: tts.train_step(model, optimizer, batch, torch.ones(NUM_CLASS),
+                                             cfg, generator=torch.Generator().manual_seed(2)),
+                      tmp_path)
+    aggregate, group, mlp = (named(found, n) for n in ("pnx.aggregate", "pnx.group",
+                                                          "pnx.mlp"))
+    assert (len(aggregate), len(group), len(mlp)) == (3, 3, 1)
+    assert [sum(inside(g, a) for g in group) for a in aggregate] == [1, 1, 1]
+    assert not any(inside(m, a) for m in mlp for a in aggregate)
+    assert aggregate[1][2] <= mlp[0][1]  # the block's aggregation, then its MLP
+    forward = named(found, "train.forward")
+    assert all(inside(s, forward[0]) for s in aggregate + group + mlp)
 
 
 def test_a_request_spans_its_sample_and_each_vote(tmp_path):

@@ -174,6 +174,9 @@ def test_s3dis_dataset_reads_rooms_with_the_area_split_and_loop(tmp_path):
 def test_seg_config_defaults_match_jax():
     tf = {f.name: f.default for f in dataclasses.fields(tts.SegConfig)}
     jf = {f.name: f.default for f in dataclasses.fields(jts.SegConfig)}
+    # label_smoothing is the port's alone (PointNeXt's recipe); at its
+    # default 0 the loss is the JAX package's weighted cross-entropy
+    assert tf.pop("label_smoothing") == 0.0
     assert set(jf) == set(tf)  # pred_ignore0 too, since ScanNet was ported
     for name, value in tf.items():
         assert value == jf[name] or tuple(value) == tuple(jf[name]), name

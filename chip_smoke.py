@@ -2120,7 +2120,6 @@ def phase_seg_slice(dev, profile=False):
     fps.launches_by_route.clear()
     knn_brute.launches_by_route.clear()
     knn_window.resolve_launches = 0
-    knn_window.resolved_total = 0
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
     for _ in range(3):
@@ -2138,12 +2137,10 @@ def phase_seg_slice(dev, profile=False):
     launches["knn_window_resolve"] = knn_window.resolve_launches
     routes = dict(fps.launches_by_route)
     brute_routes = dict(knn_brute.launches_by_route)
-    resolved = int(knn_window.resolved_total)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     print(f"seg slice: repsurf_umb_ssg ({n_params} parameters), batch {b} x {n} points, "
           f"3 train steps + 1 eval step; launches {launches}, fps by route {routes}, knn_brute "
-          f"by route {brute_routes}; window re-solved queries in the slice {resolved}; peak "
-          f"memory {peak_gb:.2f} GiB")
+          f"by route {brute_routes}; peak memory {peak_gb:.2f} GiB")
     if (min(launches.values()) == 0 or routes.get("cluster", 0) == 0
             or brute_routes.get("split", 0) == 0):
         raise AssertionError("a kernel of the seg path was not launched in the slice")

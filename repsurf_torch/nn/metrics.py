@@ -17,15 +17,18 @@ def intersection_and_union(pred, target, num_class, ignore_index=255):
     pred = pred.reshape(-1).long()
     target = target.reshape(-1).long()
     keep = target != ignore_index
-
-    def hist(x, mask):
-        # masked-out rows land in a spare bin K, cut off (no host sync)
-        x = torch.where(mask, x, num_class)
-        return torch.bincount(x, minlength=num_class + 1)[:num_class].to(torch.float32)
-
-    inter = hist(pred, keep & (pred == target))
-    area_pred = hist(pred, keep)
-    area_target = hist(target, keep)
+    # one int64 histogram of three rows (intersection, prediction, target)
+    # of K + 1 bins: masked-out entries land in the spare bin K, cut off.
+    # torch.bincount on a CUDA tensor reads its input's range back to the
+    # host; a scatter-add into a fixed number of bins needs no host sync.
+    rows = torch.stack((torch.where(keep & (pred == target), pred, num_class),
+                        torch.where(keep, pred, num_class),
+                        torch.where(keep, target, num_class)))
+    rows = torch.where((rows >= 0) & (rows < num_class), rows, num_class)
+    bins = rows + torch.arange(3, device=rows.device)[:, None] * (num_class + 1)
+    counts = torch.zeros(3 * (num_class + 1), dtype=torch.int64, device=rows.device)
+    counts.scatter_add_(0, bins.reshape(-1), torch.ones_like(bins).reshape(-1))
+    inter, area_pred, area_target = counts.view(3, num_class + 1)[:, :num_class].to(torch.float32)
     return inter, area_pred + area_target - inter, area_target
 
 

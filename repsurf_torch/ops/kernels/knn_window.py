@@ -23,8 +23,7 @@ A call is three steps on one stream, and the host waits on none of them:
 ``knn_window.launches`` counts the window kernel's launches,
 ``knn_window.resolve_launches`` the re-solve kernel's;
 ``knn_window.resolved`` holds the last call's per-sample count of failing
-queries, ``knn_window.resolved_total`` the sum over calls since it was last
-set to 0.
+queries.
 """
 
 import collections
@@ -70,14 +69,14 @@ def window_tables(k, xyz, new_xyz, valid=None):
     ok = torch.ones((b, n), dtype=torch.bool, device=dev) if valid is None else (
         col[None, :] < valid.to(dev)[:, None]
     )
-    inf = torch.tensor(float("inf"), device=dev)
-    lo = torch.where(ok[..., None], xyz, inf).amin(dim=1)
-    hi = torch.where(ok[..., None], xyz, -inf).amax(dim=1)
+    # Python scalars and a shape built on the device: a host tensor copied
+    # up would drain the stream, and a CUDA graph cannot hold the copy
+    lo = torch.where(ok[..., None], xyz, float("inf")).amin(dim=1)
+    hi = torch.where(ok[..., None], xyz, float("-inf")).amax(dim=1)
     lo = torch.where(torch.isfinite(lo), lo, 0.0)
     hi = torch.where(torch.isfinite(hi), hi, 0.0)
-    shape = torch.tensor([gxy, gxy, gz], dtype=torch.float32, device=dev)
-    cs = torch.clamp(hi - lo, min=1e-6) / shape
-    cmax = (shape - 1).to(torch.int64)
+    cmax = torch.where(torch.arange(3, device=dev) < 2, gxy - 1, gz - 1)
+    cs = torch.clamp(hi - lo, min=1e-6) / (cmax + 1).to(torch.float32)
 
     def cell_ids(p):
         c = torch.floor((p - lo[:, None]) / cs[:, None]).to(torch.int64)
@@ -161,7 +160,6 @@ def knn_window(k, xyz, new_xyz, valid=None):
     idx, dist, resolved, fails, fail_kth = window_pass(k, new_xyz, t)
     window_resolve(k, new_xyz, t, idx, dist, resolved, fails, fail_kth)
     knn_window.resolved = resolved
-    knn_window.resolved_total = knn_window.resolved_total + resolved.sum()
     return idx, dist
 
 
@@ -170,4 +168,3 @@ knn_window.launches_by_k = collections.Counter()  # window passes keyed by k
 knn_window.launches_by_shape = collections.Counter()  # window passes, "BxN->M,k=K"
 knn_window.resolve_launches = 0
 knn_window.resolved = None  # [B] int32 on the device, the last call's count
-knn_window.resolved_total = 0  # summed on the device; set to 0 to restart

@@ -17,6 +17,14 @@ into the optimizer's parameter groups before the epoch.
 import torch
 
 
+def _capturable(params):
+    """Whether ``train/step_graph.py`` can graph a step over ``params``:
+    every one on a CUDA device, and no process group (the data-parallel
+    steps stay eager)."""
+    return (bool(params) and all(p.is_cuda for p in params)
+            and not (torch.distributed.is_available() and torch.distributed.is_initialized()))
+
+
 def make_adam(params, base_lr=1e-3, weight_decay=1e-4):
     """``torch.optim.Adam`` as the classification recipe sets it
     (train_cls_scanobjectnn.py:179-185): betas (0.9, 0.999), eps 1e-8,
@@ -26,11 +34,8 @@ def make_adam(params, base_lr=1e-3, weight_decay=1e-4):
     update; the update may then differ from the host-corrected one in the
     last bit.  The data-parallel step's Adam (in a process group) is not."""
     params = list(params)
-    capturable = (bool(params) and all(p.is_cuda for p in params)
-                  and not (torch.distributed.is_available()
-                           and torch.distributed.is_initialized()))
     return torch.optim.Adam(params, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=weight_decay, capturable=capturable)
+                            weight_decay=weight_decay, capturable=_capturable(params))
 
 
 def make_sgd(params, base_lr, momentum=0.9, weight_decay=0.0):
@@ -42,9 +47,11 @@ def make_sgd(params, base_lr, momentum=0.9, weight_decay=0.0):
 def make_adamw(params, base_lr=6e-3, weight_decay=1e-2):
     """``torch.optim.AdamW`` as the recipe sets it (segmentation
     util/utils.py:213): betas (0.9, 0.999), eps 1e-8, decoupled decay on
-    every parameter, as optax's ``adamw`` applies it."""
+    every parameter, as optax's ``adamw`` applies it.  ``capturable`` where
+    ``make_adam`` is, with the same last-bit caveat."""
+    params = list(params)
     return torch.optim.AdamW(params, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=weight_decay)
+                             weight_decay=weight_decay, capturable=_capturable(params))
 
 
 def step_lr(base_lr, decay_step=20, gamma=0.7, pre_step=True):

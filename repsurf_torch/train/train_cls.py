@@ -137,10 +137,10 @@ def train_step(model, optimizer, points, target, cfg, generator=None, signs=None
     Returns:
       (loss, correct) tensors of their own.
     """
-    if step_graph.graphable(points, optimizer):
-        return step_graph.run(functools.partial(eager_step, cfg=cfg), model, optimizer,
-                              points, target, generator, signs, config=cfg)
-    return eager_step(model, optimizer, points, target, cfg, generator, signs)
+    step = functools.partial(eager_step, model, optimizer, cfg=cfg, generator=generator)
+    return step_graph.run(step, model, optimizer,
+                          {"points": points, "target": target, "signs": signs}, generator,
+                          config=cfg)
 
 
 def eager_step(model, optimizer, points, target, cfg, generator=None, signs=None):

@@ -2,7 +2,8 @@
 
 ``train_step``: the training forward (sectorized FPS, batch statistics,
 head dropout, a random normal inversion per sample), the loss with the
-ignore label, backward, AdamW, and the histogram counters.  ``eval_step``
+ignore label, backward, AdamW, and the histogram counters, on a CUDA device
+replayed as one CUDA graph (``step_graph``).  ``eval_step``
 is the serving forward: running statistics, no sectors, no dropout, no
 inversion.
 
@@ -30,6 +31,7 @@ from ..nn.layers import Dropout
 from ..nn.losses import weighted_cross_entropy
 from ..nn.metrics import intersection_and_union
 from ..utils.spans import span
+from . import step_graph
 from .optim import make_adamw, make_sgd, multistep_lr
 
 FROZEN_SCOPE = "surface_constructor"
@@ -177,9 +179,24 @@ def train_step(model, optimizer, batch, class_weight, cfg, generator=None, freez
       freeze: freeze the surface constructor (see the module doc); a no-op
         for a model without one.
 
+    Where ``step_graph.graphable`` holds (CUDA inputs, no process group, a
+    capturable optimizer: ``make_adamw`` on CUDA parameters), the step is
+    captured as a CUDA graph on its second call with the same key and
+    replayed from then on (``step_graph.run``); elsewhere it is
+    ``eager_step``.
+
     Returns:
-      (loss, (intersection, union, target)) tensors.
+      (loss, (intersection, union, target)) tensors of their own.
     """
+    def step(class_weight, **batch):
+        return eager_step(model, optimizer, batch, class_weight, cfg, generator, freeze)
+
+    return step_graph.run(step, model, optimizer, dict(batch, class_weight=class_weight),
+                          generator, config=(cfg, freeze))
+
+
+def eager_step(model, optimizer, batch, class_weight, cfg, generator=None, freeze=False):
+    """``train_step`` without a graph: launch by launch from the host."""
     label = batch["label"]
     logits = train_forward(model, batch, generator)
     loss = seg_loss(logits, label, class_weight, cfg)

@@ -20,10 +20,13 @@ Names are ``<layer>.<stage>``:
   inside its ``scene.crop``; the batches need no upload;
 * ``train.forward``, ``train.backward``, ``train.update`` (both train
   steps; the forward and the update also in the data-parallel steps).  A
-  classification step replayed as a CUDA graph (``train/step_graph.py``)
-  holds only ``train.forward``, around the copy of its inputs in and the
-  replay: the host issues nothing for the backward and the update there,
-  so the spans still cover the host's real issue time;
+  train step replayed as a CUDA graph (``train/step_graph.py``) holds only
+  ``train.forward``, around the copy of its inputs in and the replay: the
+  host issues nothing for the backward and the update there, nor for the
+  model's own spans below, which only the eager step and the capture
+  record, so the spans still cover the host's real issue time;
+  ``train.step`` is the whole captured step, timed on the card only (see
+  the end);
 * ``serve.sample`` and one ``serve.forward`` a vote (``train_cls.eval_step``);
 * ``pt.attention`` (a ``PointTransformerLayer``: its kNN, gathers, both
   MLPs, softmax and weighted sum), ``pt.down`` (a strided
@@ -41,6 +44,12 @@ Counts come from the spans: the number of ``scene.crop`` spans is the
 number of crops.  Apart from PointTransformer's and PointNeXt's, no model
 or kernel holds a span: a model span's host time is its launch time, and the time the host
 waits inside it for the card when the launch queue is full.
+
+A replayed graph issues no span, so a capture keeps the card's side of
+them instead: inside ``timing()`` (``step_graph`` captures a step in it)
+each span records a pair of CUDA timing events, which the graph holds as
+event nodes around the span's kernels and records again at every replay.
+``device_seconds`` reads a replay's device seconds under each name.
 """
 
 import contextlib
@@ -48,11 +57,57 @@ import contextlib
 import torch
 
 _NULL = contextlib.nullcontext()
+_timed = None  # inside ``timing()``: the list the spans' event pairs go to
+
+
+class _Timed:
+    """A span's pair of CUDA timing events, recorded on the current stream
+    (a capturing one: the events become the graph's nodes)."""
+
+    def __init__(self, name):
+        self.name = name
+        self.start = torch.cuda.Event(enable_timing=True, external=True)
+        self.end = torch.cuda.Event(enable_timing=True, external=True)
+
+    def __enter__(self):
+        self.start.record()
+        return self
+
+    def __exit__(self, *exc):
+        self.end.record()
 
 
 def span(name):
-    """A context manager that marks ``name`` in a recording profiler's
-    trace, and does nothing when none records."""
+    """A context manager that times ``name`` on the card inside
+    ``timing()``, marks it in a recording profiler's trace, and does
+    nothing otherwise."""
+    if _timed is not None:
+        timed = _Timed(name)
+        _timed.append(timed)
+        return timed
     if torch._C._autograd._profiler_enabled():
         return torch.profiler.record_function(name)
     return _NULL
+
+
+@contextlib.contextmanager
+def timing():
+    """Within it every span is timed on the card -> the list of the spans'
+    event pairs, in the order they open."""
+    global _timed
+    outer, _timed = _timed, []
+    try:
+        yield _timed
+    finally:
+        _timed = outer
+
+
+def device_seconds(timed):
+    """{name: device seconds between each of its spans' events, summed}
+    for the event pairs ``timing()`` gave, once all have been recorded;
+    waits for the last of them."""
+    out = {}
+    for t in timed:
+        t.end.synchronize()
+        out[t.name] = out.get(t.name, 0.0) + t.start.elapsed_time(t.end) * 1e-3
+    return out

@@ -190,6 +190,47 @@ def test_a_span_enters_record_function_only_while_a_profiler_records(monkeypatch
     assert entered == ["scene.crop"]
 
 
+class _ClockEvent:
+    """Stands in for a CUDA timing event on the CPU: ``record`` reads a
+    clock that each record advances by 1 ms."""
+
+    clock = 0
+
+    def __init__(self, enable_timing=False, external=False):
+        assert enable_timing and external
+        self.at = None
+
+    def record(self):
+        _ClockEvent.clock += 1
+        self.at = _ClockEvent.clock
+
+    def synchronize(self):
+        assert self.at is not None
+
+    def elapsed_time(self, end):
+        return float(end.at - self.at)
+
+
+def test_spans_inside_timing_record_event_pairs(monkeypatch):
+    """Inside ``timing()`` a span records a pair of timing events, in the
+    list in the order the spans open, nested ones too; outside it, even
+    with the list kept, spans are as before.  ``device_seconds`` sums each
+    name's pairs."""
+    monkeypatch.setattr(torch.cuda, "Event", _ClockEvent)
+    with spans.timing() as timed:
+        with spans.span("pnx.aggregate"):       # clock 1 .. 4
+            with spans.span("pnx.group"):       # 2 .. 3
+                pass
+        with spans.span("pnx.aggregate"):       # 5 .. 8
+            with spans.span("pnx.group"):       # 6 .. 7
+                pass
+    assert [t.name for t in timed] == ["pnx.aggregate", "pnx.group"] * 2
+    assert spans.span("pnx.group") is spans._NULL
+    assert spans.device_seconds(timed) == {"pnx.aggregate": pytest.approx(6e-3),
+                                           "pnx.group": pytest.approx(2e-3)}
+    assert spans.device_seconds([]) == {}
+
+
 def test_test_s3dis_profile_traces_the_first_scene(tmp_path, capsys):
     argv = ["--synthetic", "--synthetic_rooms", "2", "--synthetic_raw", "2000",
             "--voxel_max", "1024", "--device", "cpu", "--profile",

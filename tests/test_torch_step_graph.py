@@ -55,7 +55,7 @@ class _StubGraph:
 
 def _stub_capture(fn, generator, device):
     outputs = (torch.zeros(()), torch.zeros((), dtype=torch.int64))
-    return _StubGraph(fn, outputs), outputs
+    return _StubGraph(fn, outputs), outputs, []
 
 
 @pytest.fixture
@@ -92,7 +92,8 @@ def test_cpu_train_step_is_the_eager_step_with_torch_adam():
     counts no step."""
     batches = _batches(3)
     before = dict(step_graph.counts)
-    assert not step_graph.graphable(batches[0][0], ttc.make_optimizer(_model(), CFG))
+    assert not step_graph.graphable({"points": batches[0][0], "target": batches[0][1]},
+                                    ttc.make_optimizer(_model(), CFG))
     got = _run(ttc.train_step, batches)
 
     def old_step(model, opt, points, target, cfg, generator):
@@ -201,7 +202,7 @@ def test_launch_counters_count_the_launches_on_the_card(graphed, monkeypatch, ou
     monkeypatch.setattr(fps, "launches_by_shape", collections.Counter())
     monkeypatch.setattr(batch_norm, "launches", dict.fromkeys(batch_norm.launches, 0))
 
-    def step(model, optimizer, points, target, generator=None, signs=None):
+    def step(points=None, target=None):
         fps.launches += 1
         fps.launches_by_shape["4x128->64"] += 1
         batch_norm.launches["stats"] += 3
@@ -211,7 +212,8 @@ def test_launch_counters_count_the_launches_on_the_card(graphed, monkeypatch, ou
         fn()  # the wrappers count what the capture records
         if outcome == "failed":
             raise RuntimeError("operation not permitted when stream is capturing")
-        return _StubGraph(lambda: (), ()), (torch.zeros(()), torch.zeros((), dtype=torch.int64))
+        return (_StubGraph(lambda: (), ()), (torch.zeros(()), torch.zeros((), dtype=torch.int64)),
+                [])
 
     monkeypatch.setattr(graphed, "_capture", capture)
     model = torch.nn.Linear(3, 2)
@@ -220,7 +222,7 @@ def test_launch_counters_count_the_launches_on_the_card(graphed, monkeypatch, ou
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
         for _ in range(5):
-            step_graph.run(step, model, opt, points, target)
+            step_graph.run(step, model, opt, {"points": points, "target": target})
     assert fps.launches == 5 and dict(fps.launches_by_shape) == {"4x128->64": 5}
     assert batch_norm.launches == {"stats": 15, "normalize": 0, "backward": 0, "eval": 0}
     replays = 4 if outcome == "captured" else 0
